@@ -1,0 +1,184 @@
+"""K1 — fused KS dictionary + Gram statistics over the full field.
+
+Port of ``pdx/ops/pallas/fused_gram.py:39-69, 115-147, 279-344``. The
+pointwise KS pipeline's memory traffic is dominated by materialising the term
+stack [lap, bih, |grad u|^2] before one GEMM; kernel K1
+(``pdx_torch/csrc/fused_gram.cu``) reads U and Ut once, computes the
+periodic stencil terms on chip, and returns the ``gram_stats`` dict
+{G, b, sx, n, syy, sy} of the true library.
+
+Fields are computed in float32 from float32-cast inputs, as the TPU kernel
+does; sums are float64 in the kernel and in its plain version
+:func:`fused_ks_gram_reference`, so the statistics come back as float64.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from pdx_torch.ops.linalg import gram_stats
+
+RICH_TERM_NAMES = ("one", "u", "u2", "ux", "uy", "lap", "bih", "gradsq", "u_lap")
+
+_MAX_TILE = 64  # widest tile side in points (unless one block is wider)
+_TARGET_CTAS = 1024  # ~8 resident 256-thread CTAs on each of 132 SMs
+
+
+def _ks_terms_2d(u: Tensor, dx: float, dy: float) -> tuple[Tensor, Tensor, Tensor]:
+    """lap, bih, |grad u|^2 with periodic rolls on the trailing two axes."""
+    lap = (
+        (torch.roll(u, -1, -2) - 2 * u + torch.roll(u, 1, -2)) / (dx * dx)
+        + (torch.roll(u, -1, -1) - 2 * u + torch.roll(u, 1, -1)) / (dy * dy)
+    )
+    bih = (
+        (torch.roll(lap, -1, -2) - 2 * lap + torch.roll(lap, 1, -2)) / (dx * dx)
+        + (torch.roll(lap, -1, -1) - 2 * lap + torch.roll(lap, 1, -1)) / (dy * dy)
+    )
+    gx = (torch.roll(u, -1, -2) - torch.roll(u, 1, -2)) / (2 * dx)
+    gy = (torch.roll(u, -1, -1) - torch.roll(u, 1, -1)) / (2 * dy)
+    return lap, bih, gx * gx + gy * gy
+
+
+def _term_fields(u: Tensor, dx: float, dy: float, names: tuple[str, ...]) -> list[Tensor]:
+    """The named periodic-stencil term fields of the rich KS vocabulary
+    (``RICH_TERM_NAMES``); shared intermediates are built once."""
+    need = set(names)
+    ux = uy = lap = bih = None
+    if need & {"ux", "uy", "gradsq"}:
+        ux = (torch.roll(u, -1, -2) - torch.roll(u, 1, -2)) / (2 * dx)
+        uy = (torch.roll(u, -1, -1) - torch.roll(u, 1, -1)) / (2 * dy)
+    if need & {"lap", "bih", "u_lap"}:
+        lap = (
+            (torch.roll(u, -1, -2) - 2 * u + torch.roll(u, 1, -2)) / (dx * dx)
+            + (torch.roll(u, -1, -1) - 2 * u + torch.roll(u, 1, -1)) / (dy * dy)
+        )
+    if "bih" in need:
+        bih = (
+            (torch.roll(lap, -1, -2) - 2 * lap + torch.roll(lap, 1, -2)) / (dx * dx)
+            + (torch.roll(lap, -1, -1) - 2 * lap + torch.roll(lap, 1, -1)) / (dy * dy)
+        )
+    built = {
+        "one": lambda: torch.ones_like(u),
+        "u": lambda: u,
+        "u2": lambda: u * u,
+        "ux": lambda: ux,
+        "uy": lambda: uy,
+        "lap": lambda: lap,
+        "bih": lambda: bih,
+        "gradsq": lambda: ux * ux + uy * uy,
+        "u_lap": lambda: u * lap,
+    }
+    return [built[n]() for n in names]
+
+
+def fused_ks_gram_reference(U: Tensor, Ut: Tensor, dx: float, dy: float) -> dict[str, Tensor]:
+    """Plain version of K1: materialise the three fields (float32), then
+    float64 ``gram_stats`` — the term stack the kernel avoids."""
+    lap, bih, gsq = _ks_terms_2d(U.to(torch.float32), dx, dy)
+    X = torch.stack([lap.reshape(-1), bih.reshape(-1), gsq.reshape(-1)], dim=-1)
+    y = Ut.to(torch.float32).reshape(-1)
+    return gram_stats(X.to(torch.float64), y.to(torch.float64))
+
+
+# --- helpers shared with K3 (fused_blockwise.py) ----------------------------
+
+
+def _check_inputs(U: Tensor, Ut: Tensor) -> None:
+    """Both (T, H, W), equal shapes, one device, float32 or float64."""
+    if U.ndim != 3 or U.shape != Ut.shape or min(U.shape) < 1:
+        raise ValueError(f"U and Ut must be equal non-empty (T, H, W); got {tuple(U.shape)}, {tuple(Ut.shape)}")
+    if U.device != Ut.device:
+        raise ValueError(f"U and Ut must share a device; got {U.device}, {Ut.device}")
+    for t in (U, Ut):
+        if t.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"U and Ut must be float32 or float64; got {t.dtype}")
+    if U.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {U.device}")
+
+
+def _f32(t: Tensor) -> Tensor:
+    """The kernel's input: contiguous float32 (no copy when already so)."""
+    return t.to(torch.float32).contiguous()
+
+
+def _tile(n: int, unit: int) -> tuple[int, int]:
+    """(tile, n_tiles) along one axis of n points: a tile is a whole number
+    of ``unit``-point blocks, at most ``_MAX_TILE`` points unless one block
+    is wider, and the tiles are balanced (100 -> two tiles of 50)."""
+    nb = -(-n // unit)
+    n_tiles = -(-nb // max(1, _MAX_TILE // unit))
+    per = -(-nb // n_tiles)
+    return per * unit, -(-nb // per)
+
+
+def _chunks(n_items: int, n_tiles: int) -> tuple[int, int]:
+    """(items_per_cta, n_chunks): split frames (or temporal blocks) so that
+    tiles x chunks is about ``_TARGET_CTAS``."""
+    want = max(1, min(n_items, _TARGET_CTAS // n_tiles))
+    per = -(-n_items // want)
+    return per, -(-n_items // per)
+
+
+def _check_smem(nbytes: int, device: torch.device, what: str) -> None:
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if nbytes > limit:
+        raise ValueError(f"{what} needs {nbytes} B of shared memory per CTA; the card allows {limit}")
+
+
+def _stencil_args(dx: float, dy: float) -> tuple[float, float, float, float]:
+    """dx*dx, dy*dy, 2*dx, 2*dy — ctypes rounds each to float32, the value
+    the plain float32 version divides by."""
+    return dx * dx, dy * dy, 2 * dx, 2 * dy
+
+
+def _stats_from_row(out: Tensor, n: float) -> dict[str, Tensor]:
+    """The kernels' 14 statistics (G00 G01 G02 G11 G12 G22 b0 b1 b2 sx0 sx1
+    sx2 sy syy) as a ``gram_stats`` dict."""
+    G = out[[0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(3, 3)
+    return {
+        "G": G,
+        "b": out[6:9],
+        "sx": out[9:12],
+        "n": torch.tensor(n, dtype=out.dtype, device=out.device),
+        "syy": out[13],
+        "sy": out[12],
+    }
+
+
+def fused_ks_gram(U: Tensor, Ut: Tensor, *, dx: float, dy: float) -> dict[str, Tensor]:
+    """Streaming dictionary + Gram statistics for [lap, bih, gradsq].
+
+    U and Ut are aligned (T, H, W) stacks (any T, H, W). On the CPU this is
+    :func:`fused_ks_gram_reference`; on a CUDA tensor it launches K1 and
+    raises if the build or the launch fails. Returns float64 statistics.
+    """
+    _check_inputs(U, Ut)
+    if U.device.type == "cpu":
+        return fused_ks_gram_reference(U, Ut, dx, dy)
+    from pdx_torch.ops.kernels._build import library
+
+    lib = library()
+    T, H, W = U.shape
+    TH, ntx = _tile(H, 1)
+    TW, nty = _tile(W, 1)
+    _check_smem(lib.pdx_fused_ks_gram_smem_bytes(TH, TW), U.device, "fused_ks_gram")
+    fpc, ntz = _chunks(T, ntx * nty)
+    # partials and any float32 copies may be released before the kernel ends:
+    # the caching allocator reuses them only for work queued later on this stream
+    U32, Ut32 = _f32(U), _f32(Ut)
+    partials = torch.empty((ntx * nty * ntz, 14), dtype=torch.float64, device=U.device)
+    out = torch.empty(14, dtype=torch.float64, device=U.device)
+    with torch.cuda.device(U.device):
+        rc = lib.pdx_fused_ks_gram(
+            U32.data_ptr(), Ut32.data_ptr(), T, H, W, TH, TW, fpc, ntx, nty, ntz,
+            *_stencil_args(dx, dy), partials.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_ks_gram: CUDA launch failed with error {rc}")
+    fused_ks_gram.launches += 1
+    return _stats_from_row(out, float(T * H * W))
+
+
+fused_ks_gram.launches = 0  # K1 launches in this process

@@ -1,0 +1,399 @@
+"""KS-2D ground-truth STRidge benchmark — the port's main path.
+
+Port of ``pdx/pipelines/ks2d_bench.py:53-136, 147-191, 281-425, 612-776``:
+simulate (explicit Euler) -> forward-difference u_t -> KS dictionary ->
+Gram statistics -> the 5 x 6 alpha x threshold STRidge grid -> host-side
+selection by (R^2, -n_active, -rmse) -> ground-truth errors + a rollout.
+
+Three branches of the grid-search fast path are ported:
+
+* ``solver="auto"`` / ``"gram"``: a 50k-sample pointwise dataset drawn with
+  the reference's host numpy RNG (seed 0), a 70/30 split, the grid on the
+  train Gram statistics, scored on the test rows;
+* ``solver="pallas"``: the full-field statistics from kernel K1
+  (:func:`~pdx_torch.ops.kernels.fused_gram.fused_ks_gram`);
+* ``solver="pallas", method="blockwise"``: the blockwise statistics from
+  kernel K3 (:func:`~pdx_torch.ops.kernels.fused_blockwise.fused_blockwise_gram`).
+
+Options that need modules not ported yet raise ``NotImplementedError``
+naming the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from pdx_torch import resolve_device, resolve_dtype
+from pdx_torch.library.dictionaries import (
+    build_dictionary_rich,
+    build_dictionary_true,
+    display_names,
+)
+from pdx_torch.library.pointwise import forward_difference_ut
+from pdx_torch.ops.kernels.fused_blockwise import fused_blockwise_gram
+from pdx_torch.ops.kernels.fused_gram import fused_ks_gram
+from pdx_torch.ops.linalg import gram_stats
+from pdx_torch.sim.ks2d import Ks2dConfig, simulate_ks2d
+from pdx_torch.solve.stridge import stridge_grid
+from pdx_torch.validate.rollout import rollout_rmse_curve_named
+
+KS_GT = {"lap": -1.0, "bih": -1.0, "gradsq": -0.5}
+
+GRID_ALPHAS = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2)
+GRID_THRESHOLDS = (1e-10, 1e-9, 1e-8, 1e-7, 1e-6, 1e-5)
+
+TRUE_NAMES = ["lap", "bih", "gradsq"]
+RICH_NAMES = ["one", "u", "u2", "ux", "uy", "lap", "bih", "gradsq", "u_lap"]
+
+
+@dataclass(frozen=True)
+class Ks2dBenchConfig:
+    """Same fields and defaults as ``pdx.pipelines.ks2d_bench.Ks2dBenchConfig``
+    (which mirrors the reference CLI)."""
+
+    # simulation
+    Nx: int = 100
+    Ny: int = 100
+    n_seconds: float = 2.0
+    dt: float = 1e-3
+    save_every: int = 1
+    # dataset method
+    method: str = "pointwise"  # pointwise | blockwise | weakform
+    dictionary: str = "true"  # true | rich
+    derivatives: str = "finite"  # finite | spectral
+    spectral_cutoff: float = 1.0
+    include_advection: bool = False
+    enforce_no_advection: bool = False
+    n_sample: int = 50_000
+    # perturbation
+    perturbation: str = "none"
+    noise_rel: float = 0.0
+    noise_seed: int = 999
+    shift_max: float = 1.5
+    shift_mode: str = "constant"
+    blur_sigma: float = 1.5
+    drift: float = 0.02
+    # stabilization / u_t correction
+    stabilize_shifts: bool = False
+    stabilize_mode: str = "to_first"
+    stabilize_est_sigma: float = 0.0
+    correct_shift_ut: bool = False
+    ut_shift_smooth: int = 7
+    ut_adv_deriv: str = "spectral"
+    ut_adv_cutoff: float = 0.5
+    # denoising
+    denoise_time_window: int = 1
+    denoise_space_sigma: float = 0.0
+    denoise_space_on: str = "features"  # features | all
+    # weak form
+    weak_max_k: int = 3
+    weak_basis: str = "gaussian"
+    weak_n_phi: int = 64
+    weak_sigma_px: float = 6.0
+    weak_grad_cutoff: float | None = None
+    weak_motion_correct: bool = False
+    weak_motion_est_sigma: float = 0.0
+    weak_motion_smooth: int = 7
+    weak_motion_clip_px: float = -1.0
+    weak_operator: str = "spectral"
+    # blockwise
+    block_t: int = 3
+    block_x: int = 8
+    block_y: int = 8
+    # regression
+    regression: str = "standard"  # standard | huber | trimmed | sign_constrained | ensemble
+    robust: bool = False
+    grid_search: bool = False
+    alpha: float = 1e-6
+    threshold: float = 1e-10
+    huber_delta: float = 1.35
+    trim_frac: float = 0.05
+    n_bootstrap: int = 30
+    sign_constraints: tuple[int, ...] = ()
+    # rollout
+    rollout_steps: int = 50
+    # numerics
+    dtype: str = "float64"
+    # auto | gram | qr | pallas; 'pallas' = the fused streaming kernels over
+    # the FULL field (K1) or every block (K3), selection by train R^2
+    solver: str = "auto"
+    mesh: str = "auto"  # auto | off | on (single device in this port)
+
+
+def _check_supported(cfg: Ks2dBenchConfig) -> None:
+    """Raise NotImplementedError for options whose modules are not ported."""
+    slice2 = "lands with slice 2 of the port (see ROADMAP.md, Queue 1)"
+    unsupported = {
+        "perturbation != 'none' (sim/perturb.py)": cfg.perturbation != "none",
+        "stabilize_shifts (register/phasecorr.py)": cfg.stabilize_shifts,
+        "denoise_time_window > 1 (ops/filters.py)": cfg.denoise_time_window > 1,
+        "denoise_space_sigma > 0 (ops/spectral.py)": cfg.denoise_space_sigma > 0,
+        "method='weakform' (library/weakform.py)": cfg.method == "weakform",
+        "correct_shift_ut (register/phasecorr.py)": cfg.correct_shift_ut,
+        "regression != 'standard' (solve/robust.py)": cfg.regression != "standard",
+        "robust=True (solve/robust.py)": cfg.robust,
+        "solver='qr' (stridge_qr)": cfg.solver == "qr",
+    }
+    for what, hit in unsupported.items():
+        if hit:
+            raise NotImplementedError(f"{what} {slice2}")
+
+
+def prepare_frames(cfg: Ks2dBenchConfig, device: str | torch.device | None = None) -> dict[str, Any]:
+    """Simulate the clean trajectory. Returns the field dict of
+    ``pdx.pipelines.ks2d_bench.prepare_frames`` (clean path: perturbation,
+    stabilization and denoising are identities)."""
+    _check_supported(cfg)
+    sim = Ks2dConfig(
+        Nx=cfg.Nx, Ny=cfg.Ny, dt=cfg.dt, n_seconds=cfg.n_seconds, save_every=cfg.save_every
+    )
+    U, dx, dy, DT = simulate_ks2d(
+        sim, dtype=resolve_dtype(cfg.dtype), device=resolve_device(device)
+    )
+    return {
+        "U_clean": U, "U": U, "U_for_ut": U, "U_for_features": U,
+        "dx": dx, "dy": dy, "DT": DT, "sim": sim,
+    }
+
+
+def _fused_pointwise_grid(
+    U_for_ut, U_for_features, flat_idx, tr_idx, te_idx, DT, dx, dy,
+    alphas, thresholds, names, deriv, use_qr,
+):
+    """Pointwise grid core: forward-difference target -> dictionary -> row
+    gather -> train/test split -> RMS scaling -> alpha x threshold STRidge
+    grid -> test metrics."""
+    if use_qr:
+        raise NotImplementedError(
+            "QR inner solves (the rich dictionary on float32) land with slice 2 "
+            "of the port (see ROADMAP.md, Queue 1)"
+        )
+    Ut = forward_difference_ut(U_for_ut, DT)
+    U_frames = U_for_features[:-1]
+    if set(names) <= {"lap", "bih", "gradsq", "ux", "uy"}:
+        _n, terms = build_dictionary_true(
+            U_frames, dx, dy, deriv=deriv, include_advection="ux" in names
+        )
+    else:
+        _n, terms = build_dictionary_rich(
+            U_frames, dx, dy, deriv=deriv, drop_advection="ux" not in names
+        )
+    p = terms.shape[0]
+    X_all = terms.reshape(p, -1)[:, flat_idx].T
+    y_all = Ut.reshape(-1)[flat_idx]
+    X_tr, y_tr = X_all[tr_idx], y_all[tr_idx]
+    X_te, y_te = X_all[te_idx], y_all[te_idx]
+
+    scale = torch.sqrt(torch.mean(X_tr**2, dim=0)) + 1e-12
+    const = torch.tensor([n == "one" for n in names], device=X_tr.device)
+    scale = torch.where(const, torch.ones_like(scale), scale)
+    X_tr_s = X_tr / scale
+
+    stats = gram_stats(X_tr_s, y_tr)
+    coeffs_grid, _masks = stridge_grid(stats, alphas, thresholds, max_iter=25)
+    return _score_grid(coeffs_grid / scale, X_te, y_te)
+
+
+def _fused_fullfield_grid(U_for_ut, U_for_features, DT, dx, dy, alphas, thresholds):
+    """Full-field grid: kernel K1 accumulates the true library's statistics
+    over EVERY sample (no subsample, no materialised design matrix); the
+    grid is scored by full-field train R^2 from the same statistics."""
+    Ut = forward_difference_ut(U_for_ut, DT)
+    stats = fused_ks_gram(U_for_features[:-1], Ut, dx=dx, dy=dy)
+    return _grid_from_stats(stats, alphas, thresholds)
+
+
+def _fused_blockwise_grid(U_for_ut, U_for_features, DT, dx, dy, alphas, thresholds, bt, bx, by):
+    """Blockwise grid: kernel K3 accumulates the blockwise dataset's
+    statistics over every block; scored by train R^2 over all blocks."""
+    Ut = forward_difference_ut(U_for_ut, DT)
+    stats = fused_blockwise_gram(
+        U_for_features[:-1], Ut, dx=dx, dy=dy, block_t=bt, block_x=bx, block_y=by
+    )
+    return _grid_from_stats(stats, alphas, thresholds)
+
+
+def _grid_from_stats(stats, alphas, thresholds):
+    """RMS-scaled alpha x threshold STRidge grid + full-set metrics, all from
+    (p, p) sufficient statistics (in their dtype: float64 from the kernels)."""
+    s = torch.sqrt(torch.diagonal(stats["G"]) / stats["n"]) + 1e-12
+    sstats = {
+        "G": stats["G"] / (s[:, None] * s[None, :]),
+        "b": stats["b"] / s,
+        "sx": stats["sx"] / s,
+        "n": stats["n"],
+        "sy": stats["sy"],
+        "syy": stats["syy"],
+    }
+    coeffs_s, _masks = stridge_grid(sstats, alphas, thresholds, max_iter=25)
+    coeffs_grid = coeffs_s / s
+    # full-set metrics from raw statistics: ||y - Xc||^2 = syy - 2c.b + c'Gc
+    resid2 = (
+        stats["syy"]
+        - 2.0 * torch.einsum("atp,p->at", coeffs_grid, stats["b"])
+        + torch.einsum("atp,pq,atq->at", coeffs_grid, stats["G"], coeffs_grid)
+    )
+    resid2 = torch.clamp(resid2, min=0.0)
+    sst = stats["syy"] - stats["sy"] ** 2 / stats["n"]
+    r2 = 1.0 - resid2 / (sst + 1e-18)
+    err = torch.sqrt(resid2 / stats["n"])
+    n_active = torch.sum(torch.abs(coeffs_grid) > 0, dim=-1)
+    return coeffs_grid, r2, err, n_active
+
+
+def _score_grid(coeffs_grid, X_te, y_te):
+    preds = torch.einsum("atp,np->atn", coeffs_grid, X_te)
+    resid2 = torch.sum((preds - y_te[None, None, :]) ** 2, dim=-1)
+    sst = torch.sum((y_te - torch.mean(y_te)) ** 2)
+    r2 = 1.0 - resid2 / (sst + 1e-18)
+    err = torch.sqrt(resid2 / y_te.shape[0])
+    n_active = torch.sum(torch.abs(coeffs_grid) > 0, dim=-1)
+    return coeffs_grid, r2, err, n_active
+
+
+def _term_names(cfg: Ks2dBenchConfig) -> list[str]:
+    if cfg.dictionary == "true":
+        adv = cfg.include_advection and not cfg.enforce_no_advection
+        return TRUE_NAMES + (["ux", "uy"] if adv else [])
+    if cfg.enforce_no_advection:
+        return [n for n in RICH_NAMES if n not in ("ux", "uy")]
+    return list(RICH_NAMES)
+
+
+def _run_fast_pointwise_grid(cfg: Ks2dBenchConfig, fr: dict[str, Any], rng: np.random.Generator) -> dict[str, Any]:
+    """Grid-search benchmark on prepared frames ``fr`` (see ``prepare_frames``
+    or :func:`pdx_torch.interop.frames_from_numpy`)."""
+    names = _term_names(cfg)
+    U_ut, U_feat = fr["U_for_ut"], fr["U_for_features"]
+    dev = U_ut.device
+
+    if cfg.solver == "pallas":
+        if cfg.derivatives != "finite":
+            raise ValueError(
+                "solver='pallas' streams finite-difference stencil terms; "
+                "set derivatives='finite'"
+            )
+        if names != TRUE_NAMES:
+            raise NotImplementedError(
+                "solver='pallas' with a term list other than [lap, bih, gradsq] needs "
+                "kernels K2/K4 (fused_ks_gram_terms / fused_blockwise_gram_terms), "
+                "the next kernels of the port (see ROADMAP.md, Queue 2)"
+            )
+        # kernel statistics are float64, so the grid runs in float64
+        alphas = torch.tensor(GRID_ALPHAS, dtype=torch.float64, device=dev)
+        thresholds = torch.tensor(GRID_THRESHOLDS, dtype=torch.float64, device=dev)
+        DT, dx, dy = float(fr["DT"]), float(fr["dx"]), float(fr["dy"])
+        if cfg.method == "blockwise":
+            grid = _fused_blockwise_grid(
+                U_ut, U_feat, DT, dx, dy, alphas, thresholds,
+                int(cfg.block_t), int(cfg.block_x), int(cfg.block_y),
+            )
+        else:
+            grid = _fused_fullfield_grid(U_ut, U_feat, DT, dx, dy, alphas, thresholds)
+    else:
+        Ut_size = (U_ut.shape[0] - 1) * cfg.Nx * cfg.Ny
+        n_sample = int(min(cfg.n_sample, Ut_size))
+        flat_idx = rng.choice(Ut_size, size=n_sample, replace=False)
+        perm = rng.permutation(n_sample)  # all-finite by construction (nan guards)
+        split = int(0.7 * n_sample)
+        dtype = resolve_dtype(cfg.dtype)
+        # 'auto': the true dictionary is well-conditioned (Gram path); rich
+        # dictionaries take QR on float32 ('qr' itself is refused upstream)
+        use_qr = cfg.solver == "auto" and cfg.dictionary != "true" and dtype != torch.float64
+
+        def idx(a):
+            return torch.as_tensor(a, device=dev)
+
+        grid = _fused_pointwise_grid(
+            U_ut, U_feat, idx(flat_idx), idx(perm[:split]), idx(perm[split:]),
+            fr["DT"], fr["dx"], fr["dy"],
+            torch.tensor(GRID_ALPHAS, dtype=dtype, device=dev),
+            torch.tensor(GRID_THRESHOLDS, dtype=dtype, device=dev),
+            tuple(names), cfg.derivatives, use_qr,
+        )
+    coeffs_np, r2_np, rmse_np, nact_np = (t.cpu().numpy() for t in grid)
+    best = None
+    for ai, a in enumerate(GRID_ALPHAS):
+        for ti, t in enumerate(GRID_THRESHOLDS):
+            key = (float(r2_np[ai, ti]), -int(nact_np[ai, ti]), -float(rmse_np[ai, ti]))
+            if best is None or key > best["key"]:
+                best = {
+                    "key": key, "alpha": a, "threshold": t,
+                    "coeffs": coeffs_np[ai, ti],
+                    "r2_test": key[0], "rmse_test": -key[2], "n_active": -key[1],
+                }
+    coeffs = best["coeffs"]
+
+    gt_errors = {}
+    for key, v in KS_GT.items():
+        if key in names:
+            est = float(coeffs[names.index(key)])
+            gt_errors[key] = {
+                "gt": v, "est": est, "rel_err_pct": abs(est - v) / (abs(v) + 1e-12) * 100.0,
+            }
+
+    U = fr["U"]
+    n_roll = int(min(cfg.rollout_steps, U.shape[0] - 1))
+    errs = rollout_rmse_curve_named(
+        U, coeffs, names, n_roll, fr["DT"], fr["dx"], fr["dy"]
+    ).cpu().numpy()
+    return {
+        "config": dataclasses.asdict(cfg),
+        "names": names,
+        "display_names": display_names(names),
+        "coeffs": [float(c) for c in coeffs],
+        "gt_errors": gt_errors,
+        "fit": {
+            "test_r2": best["r2_test"], "test_rmse": best["rmse_test"],
+            "n_active": int(best["n_active"]),
+        },
+        "rollout": {
+            "first": float(errs[0]), "last": float(errs[-1]),
+            "mean": float(errs.mean()), "n_steps": n_roll,
+        },
+        "grid_best": {k: v for k, v in best.items() if k not in ("coeffs", "key")},
+    }
+
+
+VALID_METHODS = {"pointwise", "blockwise", "weakform"}
+VALID_REGRESSIONS = {"standard", "huber", "trimmed", "sign_constrained", "ensemble"}
+
+
+def run(cfg: Ks2dBenchConfig, device: str | torch.device | None = None) -> dict[str, Any]:
+    """Run the benchmark on ``device`` (default: CUDA when present)."""
+    if cfg.method not in VALID_METHODS:
+        raise ValueError(f"method must be one of {sorted(VALID_METHODS)}, got '{cfg.method}'")
+    if cfg.regression not in VALID_REGRESSIONS:
+        raise ValueError(
+            f"regression must be one of {sorted(VALID_REGRESSIONS)}, got '{cfg.regression}'"
+        )
+    fast = (
+        (
+            cfg.method == "pointwise"
+            or (cfg.method == "blockwise" and cfg.solver == "pallas")
+        )
+        and cfg.regression == "standard"
+        and not cfg.robust
+        and cfg.grid_search
+        and not cfg.correct_shift_ut
+    )
+    if cfg.solver == "pallas" and not fast:
+        raise ValueError(
+            "solver='pallas' is the fused streaming grid path: requires "
+            "method='pointwise' or 'blockwise', regression='standard', "
+            "grid_search=True, robust=False, correct_shift_ut=False"
+        )
+    _check_supported(cfg)
+    if not fast:
+        raise NotImplementedError(
+            "only the grid-search fast path is ported; the build_dataset / "
+            "run_regression branch lands with slice 2 of the port (see ROADMAP.md, Queue 1)"
+        )
+    fr = prepare_frames(cfg, device)
+    rng = np.random.default_rng(0)  # reference: main:1470
+    return _run_fast_pointwise_grid(cfg, fr, rng)

@@ -1,0 +1,179 @@
+"""The port's main path as a whole: pdx_torch.pipelines.ks2d_bench against
+pdx.pipelines.ks2d_bench at Nx = Ny = 32, n_seconds = 0.2.
+
+Tolerances:
+* solver "auto", float64: coefficients at rtol 1e-8 (same RNG draws, same
+  rows, float64 throughout). The rollout mean at rtol 1e-6, with atol 1e-16:
+  its errors are ~1e-12 because the recovered coefficients sit ~1e-9 off the
+  truth, so a last-bit difference in those coefficients moves it by ~1e-17,
+  below the float64 resolution of the O(0.1) state.
+* solver "pallas", float32 frames: coefficients at rtol 1e-3 — pdx's kernel
+  sums in float32, the port's in float64.
+Coefficients are compared, not the selected (alpha, threshold): R^2 ties
+between thresholds may break differently in the last bit.
+"""
+
+import dataclasses
+import functools
+import io
+import json
+from contextlib import redirect_stdout
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pdx.pipelines.ks2d_bench as jb
+import pdx_torch.pipelines.ks2d_bench as tb
+from pdx.ops.linalg import gram_stats as jgram
+from pdx_torch.__main__ import main as cli_main
+from pdx_torch.interop import frames_from_numpy, stats_from_numpy
+from pdx_torch.ops.kernels.fused_blockwise import fused_blockwise_gram
+from pdx_torch.ops.kernels.fused_gram import fused_ks_gram
+
+SMALL = dict(grid_search=True, Nx=32, Ny=32, n_seconds=0.2)
+CASES = {
+    "auto_f64": dict(),
+    "pallas_f32": dict(solver="pallas", dtype="float32"),
+    "pallas_blockwise_f32": dict(solver="pallas", dtype="float32", method="blockwise"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _pdx_run(case):
+    return jb.run(jb.Ks2dBenchConfig(**SMALL, **CASES[case]))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_run(case):
+    return tb.run(tb.Ks2dBenchConfig(**SMALL, **CASES[case]), "cpu")
+
+
+def _worst_gt(res):
+    return max(v["rel_err_pct"] for v in res["gt_errors"].values())
+
+
+def test_config_mirrors_pdx():
+    want = [(f.name, f.default) for f in dataclasses.fields(jb.Ks2dBenchConfig)]
+    assert [(f.name, f.default) for f in dataclasses.fields(tb.Ks2dBenchConfig)] == want
+    assert (tb.KS_GT, tb.GRID_ALPHAS, tb.GRID_THRESHOLDS) == (jb.KS_GT, jb.GRID_ALPHAS, jb.GRID_THRESHOLDS)
+
+
+def test_auto_f64_matches_pdx():
+    got, want = _port_run("auto_f64"), _pdx_run("auto_f64")
+    assert got["names"] == want["names"] and got["display_names"] == want["display_names"]
+    np.testing.assert_allclose(got["coeffs"], want["coeffs"], rtol=1e-8)
+    np.testing.assert_allclose(got["rollout"]["mean"], want["rollout"]["mean"], rtol=1e-6, atol=1e-16)
+    assert got["rollout"]["n_steps"] == want["rollout"]["n_steps"] == 50
+    assert _worst_gt(got) < 1e-4
+
+
+@pytest.mark.parametrize("case,counter", [
+    ("pallas_f32", fused_ks_gram),
+    ("pallas_blockwise_f32", fused_blockwise_gram),
+])
+def test_pallas_paths_match_pdx_interpret(case, counter):
+    """On CPU tensors the K1/K3 wrappers take their plain versions (no launch)."""
+    before = counter.launches
+    got, want = _port_run(case), _pdx_run(case)
+    assert counter.launches == before
+    np.testing.assert_allclose(got["coeffs"], want["coeffs"], rtol=1e-3)
+    assert _worst_gt(got) < 1.0 and _worst_gt(want) < 1.0
+    assert np.isfinite([got["rollout"][k] for k in ("first", "last", "mean")]).all()
+
+
+def test_pdx_trajectory_through_port_grid():
+    """pdx's own frames (interop) through the port's pointwise grid: the whole
+    5 x 6 coefficient grid agrees with pdx's at rtol 1e-8, so the regression
+    is checked apart from the simulation."""
+    cfg = jb.Ks2dBenchConfig(**SMALL)
+    jfr = jb.prepare_frames(cfg)
+    fr = frames_from_numpy({k: (np.asarray(v) if hasattr(v, "shape") else v) for k, v in jfr.items()})
+    assert fr["U"].dtype == torch.float64 and fr["sim"].Nx == 32
+    rng = np.random.default_rng(0)
+    n_ut = (fr["U"].shape[0] - 1) * 32 * 32
+    flat = rng.choice(n_ut, size=50_000, replace=False)
+    perm = rng.permutation(50_000)
+    tr, te = perm[:35_000], perm[35_000:]
+    names = ("lap", "bih", "gradsq")
+    want = jb._fused_pointwise_grid(
+        jfr["U_for_ut"], jfr["U_for_features"], jnp.asarray(flat), jnp.asarray(tr), jnp.asarray(te),
+        jfr["DT"], jfr["dx"], jfr["dy"], jnp.asarray(jb.GRID_ALPHAS), jnp.asarray(jb.GRID_THRESHOLDS),
+        names, "finite", False,
+    )
+    got = tb._fused_pointwise_grid(
+        fr["U_for_ut"], fr["U_for_features"], torch.from_numpy(flat), torch.from_numpy(tr), torch.from_numpy(te),
+        fr["DT"], fr["dx"], fr["dy"], torch.tensor(tb.GRID_ALPHAS, dtype=torch.float64),
+        torch.tensor(tb.GRID_THRESHOLDS, dtype=torch.float64), names, "finite", False,
+    )
+    assert got[0].shape == (5, 6, 3)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-8)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    res = tb._run_fast_pointwise_grid(tb.Ks2dBenchConfig(**SMALL), fr, np.random.default_rng(0))
+    np.testing.assert_allclose(res["coeffs"], _pdx_run("auto_f64")["coeffs"], rtol=1e-8)
+
+
+def test_pdx_stats_through_port_grid_from_stats():
+    """pdx's Gram statistics (interop) through the port's stats-only grid."""
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(5000, 3)) * [2.0, 30.0, 0.5]
+    y = X @ [-1.0, -1.0, -0.5] + 1e-3 * rng.normal(size=5000)
+    js = jgram(jnp.asarray(X), jnp.asarray(y))
+    a, t = np.asarray(jb.GRID_ALPHAS), np.asarray(jb.GRID_THRESHOLDS)
+    want = jb._grid_from_stats(js, jnp.asarray(a), jnp.asarray(t))
+    got = tb._grid_from_stats(stats_from_numpy({k: np.asarray(v) for k, v in js.items()}), torch.from_numpy(a), torch.from_numpy(t))
+    coeffs, r2, err, n_active = (g.numpy() for g in got)
+    np.testing.assert_allclose(coeffs, np.asarray(want[0]), rtol=1e-8)
+    np.testing.assert_allclose(r2, np.asarray(want[1]), rtol=0, atol=1e-12)
+    # err = sqrt((syy - 2c.b + c'Gc) / n) cancels: its absolute error is
+    # ~eps * syy, ~1e-7 relative to a residual this small
+    np.testing.assert_allclose(err, np.asarray(want[2]), rtol=1e-5)
+    np.testing.assert_array_equal(n_active, np.asarray(want[3]))
+
+
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(method="nope"), ValueError, "method must be one of"),
+    (dict(regression="nope"), ValueError, "regression must be one of"),
+    (dict(solver="pallas", grid_search=False), ValueError, "fused streaming grid path"),
+    (dict(solver="pallas", derivatives="spectral"), ValueError, "finite"),
+    (dict(perturbation="N2_noise"), NotImplementedError, "perturb"),
+    (dict(stabilize_shifts=True), NotImplementedError, "stabilize_shifts"),
+    (dict(denoise_time_window=3), NotImplementedError, "denoise_time_window"),
+    (dict(denoise_space_sigma=1.0), NotImplementedError, "denoise_space_sigma"),
+    (dict(method="weakform"), NotImplementedError, "weakform"),
+    (dict(correct_shift_ut=True), NotImplementedError, "correct_shift_ut"),
+    (dict(regression="huber"), NotImplementedError, "robust"),
+    (dict(robust=True), NotImplementedError, "robust"),
+    (dict(solver="qr"), NotImplementedError, "stridge_qr"),
+    (dict(grid_search=False), NotImplementedError, "run_regression"),
+    (dict(solver="pallas", dictionary="rich"), NotImplementedError, "K2/K4"),
+    (dict(dictionary="rich", dtype="float32"), NotImplementedError, "QR"),
+    (dict(derivatives="spectral"), NotImplementedError, "spectral"),
+])
+def test_options_outside_the_slice_raise(kw, exc, match):
+    cfg = tb.Ks2dBenchConfig(**{**dict(SMALL, n_seconds=0.01), **kw})
+    with pytest.raises(exc, match=match):
+        tb.run(cfg, "cpu")
+
+
+def test_rich_dictionary_f64_matches_pdx():
+    """The 9-term rich dictionary on the auto (Gram) path: decoys at exactly 0."""
+    kw = {**SMALL, "n_seconds": 0.1, "dictionary": "rich"}
+    got, want = tb.run(tb.Ks2dBenchConfig(**kw), "cpu"), jb.run(jb.Ks2dBenchConfig(**kw))
+    assert got["names"] == want["names"] and len(got["coeffs"]) == 9
+    np.testing.assert_allclose(got["coeffs"], want["coeffs"], rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("cmd", ["ks2d-bench", "ks2d-bench-json"])
+def test_cli(cmd):
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = cli_main([cmd, "--Nx", "16", "--Ny", "16", "--n-seconds", "0.05", "--grid-search", "--solver", "pallas"])
+    assert rc == 0
+    text = out.getvalue()
+    if cmd == "ks2d-bench-json":
+        res = json.loads(text)
+        assert res["names"] == ["lap", "bih", "gradsq"] and res["config"]["solver"] == "pallas"
+    else:
+        assert "Ground-truth comparison" in text and "Rollout RMSE" in text

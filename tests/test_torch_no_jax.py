@@ -1,0 +1,26 @@
+"""pdx_torch must never import jax (nor pdx, whose __init__ imports jax)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import sys
+import pdx_torch, pdx_torch.__main__, pdx_torch.interop, pdx_torch.pipelines.ks2d_bench
+import pdx_torch.ops.kernels._build, pdx_torch.ops.kernels.fused_gram, pdx_torch.ops.kernels.fused_blockwise
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "pdx.")) or m == "pdx")
+assert not bad, bad
+print("clean")
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"

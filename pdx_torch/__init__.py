@@ -27,10 +27,14 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """The given device, else CUDA when a card is visible, else the CPU."""
-    if device is not None:
-        return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The given device, else the CUDA card. Never the CPU unless asked:
+    a CUDA device (the default) with no card visible raises ``RuntimeError``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card visible; pass device='cpu' (CLI: --device cpu) to run on the CPU"
+        )
+    return dev
 
 
 def resolve_dtype(name: str) -> torch.dtype:

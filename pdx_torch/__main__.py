@@ -4,8 +4,9 @@ Usage:
   python -m pdx_torch ks2d-bench [--grid-search] [--solver auto|gram|pallas] [...]
   python -m pdx_torch ks2d-bench-json [...]
 
-The flags are ``pdx``'s (one per ``Ks2dBenchConfig`` field). The run uses
-the CUDA card when one is visible, else the CPU.
+The flags are ``pdx``'s (one per ``Ks2dBenchConfig`` field), plus
+``--device`` (default ``cuda``). The run uses the CUDA card and fails
+without one; ``--device cpu`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -36,18 +37,21 @@ def _add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:
 
 
 def _parse_config(prog: str, argv: list[str]):
+    """(Ks2dBenchConfig, device) from the command line."""
     from pdx_torch.pipelines.ks2d_bench import Ks2dBenchConfig
 
     parser = argparse.ArgumentParser(prog=prog)
     _add_dataclass_args(parser, Ks2dBenchConfig)
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    return Ks2dBenchConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(Ks2dBenchConfig)})
+    cfg = Ks2dBenchConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(Ks2dBenchConfig)})
+    return cfg, args.device
 
 
 def cmd_ks2d_bench(argv: list[str]) -> int:
     from pdx_torch.pipelines.ks2d_bench import run
 
-    res = run(_parse_config("pdx_torch ks2d-bench", argv))
+    res = run(*_parse_config("pdx_torch ks2d-bench", argv))
     print("Discovered PDE (|c| > 1e-8):")
     for name, c in sorted(zip(res["display_names"], res["coeffs"]), key=lambda p: -abs(p[1])):
         if abs(c) > 1e-8:
@@ -69,7 +73,7 @@ def cmd_json(argv: list[str]) -> int:
     """ks2d-bench with machine-readable JSON output."""
     from pdx_torch.pipelines.ks2d_bench import run
 
-    res = run(_parse_config("pdx_torch ks2d-bench-json", argv))
+    res = run(*_parse_config("pdx_torch ks2d-bench-json", argv))
     print(json.dumps(res, default=float))
     return 0
 

@@ -1,8 +1,8 @@
 """KS candidate-term dictionaries as stacked (p, T, H, W) tensors.
 
-Port of ``pdx/library/dictionaries.py:29-114, 275`` with finite-difference
-derivatives. ``deriv="spectral"`` needs the FFT derivatives of
-``pdx/ops/spectral.py``, which come with slice 2 of the port.
+Port of ``pdx/library/dictionaries.py:29-114, 275``: finite-difference
+(periodic stencils) or spectral (FFT, optional radial low-pass
+``spectral_cutoff``) derivatives.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import torch
 from torch import Tensor
 
 from pdx_torch.ops.fd import gradients_periodic, laplacian_periodic
+from pdx_torch.ops.spectral import gradients_spectral, laplacian_spectral
 
 # Ground-truth KS coefficients
 KS_GROUND_TRUTH = {"lap": -1.0, "bih": -1.0, "gradsq": -0.5}
@@ -37,14 +38,14 @@ TERM_DISPLAY = {
 
 
 def _ks_derivative_fields(
-    U: Tensor, dx: float, dy: float, *, deriv: str
+    U: Tensor, dx: float, dy: float, *, deriv: str, spectral_cutoff: float
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """(ux, uy, lap, bih) for a (T, H, W) stack, periodic BCs."""
     if deriv == "spectral":
-        raise NotImplementedError(
-            "deriv='spectral' needs the FFT derivatives of pdx/ops/spectral.py, "
-            "which land with slice 2 of the port"
-        )
+        ux, uy = gradients_spectral(U, dx, dy, cutoff_frac=spectral_cutoff)
+        lap = laplacian_spectral(U, dx, dy, cutoff_frac=spectral_cutoff)
+        bih = laplacian_spectral(lap, dx, dy, cutoff_frac=spectral_cutoff)
+        return ux, uy, lap, bih
     if deriv != "finite":
         raise ValueError(f"deriv must be 'finite' or 'spectral', got '{deriv}'")
     ux, uy = gradients_periodic(U, dx, dy)
@@ -59,10 +60,13 @@ def build_dictionary_true(
     dy: float,
     *,
     deriv: str = "finite",
+    spectral_cutoff: float = 1.0,
     include_advection: bool = False,
 ) -> tuple[list[str], Tensor]:
     """KS true terms [lap, bih, gradsq] (+ ux, uy). Returns (names, terms)."""
-    ux, uy, lap, bih = _ks_derivative_fields(U, dx, dy, deriv=deriv)
+    ux, uy, lap, bih = _ks_derivative_fields(
+        U, dx, dy, deriv=deriv, spectral_cutoff=spectral_cutoff
+    )
     gradsq = ux**2 + uy**2
     names = ["lap", "bih", "gradsq"]
     terms = [lap, bih, gradsq]
@@ -78,11 +82,14 @@ def build_dictionary_rich(
     dy: float,
     *,
     deriv: str = "finite",
+    spectral_cutoff: float = 1.0,
     drop_advection: bool = False,
 ) -> tuple[list[str], Tensor]:
     """KS rich dictionary [1, u, u^2, u_x, u_y, lap, bih, |grad u|^2, u*lap];
     ``drop_advection`` removes u_x/u_y."""
-    ux, uy, lap, bih = _ks_derivative_fields(U, dx, dy, deriv=deriv)
+    ux, uy, lap, bih = _ks_derivative_fields(
+        U, dx, dy, deriv=deriv, spectral_cutoff=spectral_cutoff
+    )
     gradsq = ux**2 + uy**2
     names = ["one", "u", "u2", "ux", "uy", "lap", "bih", "gradsq", "u_lap"]
     terms = [torch.ones_like(U), U, U**2, ux, uy, lap, bih, gradsq, U * lap]

@@ -1,1 +1,2 @@
-"""pdx_torch.ops — stencils, metrics, linear algebra and the CUDA kernels."""
+"""pdx_torch.ops — stencils, FFT derivatives, filters, interpolation, metrics,
+linear algebra and the CUDA kernels."""

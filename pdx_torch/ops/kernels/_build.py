@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (``pdx_torch/csrc/*.cu``).
 
 At first use, ``nvcc`` compiles every ``.cu`` file of ``pdx_torch/csrc/``
-for ``sm_90a`` into one shared library with a plain C interface, under
-``build/pdx_torch/<hash>/`` at the repository root, and ctypes loads it. The
+for ``sm_90a`` (one compiler process per source, all started together) and
+links the objects into one shared library with a plain C interface, under
+``build/pdx_torch/<hash>/`` at the repository root; ctypes loads it. The
 hash covers the sources, the headers and the compiler flags, so an edit
 rebuilds. Only the sources in the checkout and the CUDA toolkit are used.
 """
@@ -23,7 +24,7 @@ _BUILD = _PKG.parent / "build" / "pdx_torch"
 _LIB_NAME = "libpdx_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -32,6 +33,10 @@ _SIGNATURES = {
     "pdx_fused_ks_gram_smem_bytes": (_LL, [_I, _I]),
     "pdx_fused_blockwise_gram": (_I, [_P, _P] + [_I] * 12 + [_F] * 4 + [_P, _P, _P]),
     "pdx_fused_blockwise_smem_bytes": (_LL, [_I, _I, _I, _I]),
+    "pdx_fused_ks_gram_terms": (_I, [_P, _P] + [_I] * 9 + [_F] * 4 + [_P, _I, _P, _P, _P]),
+    "pdx_fused_ks_gram_terms_smem_bytes": (_LL, [_I, _I, _I]),
+    "pdx_fused_blockwise_gram_terms": (_I, [_P, _P] + [_I] * 12 + [_F] * 4 + [_P, _I, _P, _P, _P]),
+    "pdx_fused_blockwise_terms_smem_bytes": (_LL, [_I] * 5),
 }
 
 
@@ -56,6 +61,18 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call if not cached."""
@@ -63,14 +80,17 @@ def library() -> ctypes.CDLL:
     lib_path = out_dir / _LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
+        nvcc, tag = _nvcc(), os.getpid()
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in _sources()]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)
+        ])
+        tmp = out_dir / f"{_LIB_NAME}.{tag}.tmp"
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, lib_path)
+        for obj in objs:
+            obj.unlink()
     lib = ctypes.CDLL(str(lib_path))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,15 +1,17 @@
-"""K1 — fused KS dictionary + Gram statistics over the full field.
+"""K1 and K2 — fused KS dictionary + Gram statistics over the full field.
 
-Port of ``pdx/ops/pallas/fused_gram.py:39-69, 115-147, 279-344``. The
+Port of ``pdx/ops/pallas/fused_gram.py:39-69, 115-147, 177-344``. The
 pointwise KS pipeline's memory traffic is dominated by materialising the term
-stack [lap, bih, |grad u|^2] before one GEMM; kernel K1
-(``pdx_torch/csrc/fused_gram.cu``) reads U and Ut once, computes the
-periodic stencil terms on chip, and returns the ``gram_stats`` dict
-{G, b, sx, n, syy, sy} of the true library.
+stack before one GEMM. Kernel K1 (``pdx_torch/csrc/fused_gram.cu``) reads U
+and Ut once, computes the periodic stencil terms [lap, bih, |grad u|^2] on
+chip, and returns the ``gram_stats`` dict {G, b, sx, n, syy, sy} of the true
+library; kernel K2 (``pdx_torch/csrc/fused_gram_terms.cu``) does the same for
+any list of terms of the rich vocabulary ``RICH_TERM_NAMES``.
 
-Fields are computed in float32 from float32-cast inputs, as the TPU kernel
-does; sums are float64 in the kernel and in its plain version
-:func:`fused_ks_gram_reference`, so the statistics come back as float64.
+Fields are computed in float32 from float32-cast inputs, as the TPU kernels
+do; sums are float64 in the kernels and in their plain versions
+:func:`fused_ks_gram_reference` and :func:`_terms_reference`, so the
+statistics come back as float64.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from pdx_torch.ops.linalg import gram_stats
 RICH_TERM_NAMES = ("one", "u", "u2", "ux", "uy", "lap", "bih", "gradsq", "u_lap")
 
 _MAX_TILE = 64  # widest tile side in points (unless one block is wider)
+_TERMS_MAX_TILE = 32  # K2 keeps p + 1 float32 fields of its tile in shared memory
 _TARGET_CTAS = 1024  # ~8 resident 256-thread CTAs on each of 132 SMs
 
 
@@ -81,7 +84,7 @@ def fused_ks_gram_reference(U: Tensor, Ut: Tensor, dx: float, dy: float) -> dict
     return gram_stats(X.to(torch.float64), y.to(torch.float64))
 
 
-# --- helpers shared with K3 (fused_blockwise.py) ----------------------------
+# --- helpers shared with K2-K4 ----------------------------------------------
 
 
 def _check_inputs(U: Tensor, Ut: Tensor) -> None:
@@ -102,12 +105,12 @@ def _f32(t: Tensor) -> Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def _tile(n: int, unit: int) -> tuple[int, int]:
+def _tile(n: int, unit: int, max_tile: int = _MAX_TILE) -> tuple[int, int]:
     """(tile, n_tiles) along one axis of n points: a tile is a whole number
-    of ``unit``-point blocks, at most ``_MAX_TILE`` points unless one block
+    of ``unit``-point blocks, at most ``max_tile`` points unless one block
     is wider, and the tiles are balanced (100 -> two tiles of 50)."""
     nb = -(-n // unit)
-    n_tiles = -(-nb // max(1, _MAX_TILE // unit))
+    n_tiles = -(-nb // max(1, max_tile // unit))
     per = -(-nb // n_tiles)
     return per * unit, -(-nb // per)
 
@@ -144,6 +147,97 @@ def _stats_from_row(out: Tensor, n: float) -> dict[str, Tensor]:
         "syy": out[13],
         "sy": out[12],
     }
+
+
+def _term_codes(names) -> tuple[str, ...]:
+    """Check a term list against the kernels' vocabulary (1 to 9 names of
+    ``RICH_TERM_NAMES``); returns it as a tuple."""
+    names = tuple(names)
+    bad = [n for n in names if n not in RICH_TERM_NAMES]
+    if bad or not 1 <= len(names) <= len(RICH_TERM_NAMES):
+        raise ValueError(
+            f"names must be 1 to {len(RICH_TERM_NAMES)} of {RICH_TERM_NAMES}; got {names}"
+        )
+    return names
+
+
+def _codes_arg(names: tuple[str, ...]):
+    """The term list as the C entry points take it: an int array of
+    indices into ``RICH_TERM_NAMES``."""
+    import ctypes
+
+    return (ctypes.c_int * len(names))(*(RICH_TERM_NAMES.index(n) for n in names))
+
+
+def _terms_stats_from_row(out: Tensor, p: int, n: float) -> dict[str, Tensor]:
+    """The p(p+1)/2 + 2p + 2 statistics of K2/K4 (Gram upper triangle
+    row-major, b, sx, sy, syy: the order of pdx's ``_kernel_terms``) as a
+    ``gram_stats`` dict."""
+    tri = torch.zeros((p, p), dtype=torch.long)
+    iu = torch.triu_indices(p, p)
+    tri[iu[0], iu[1]] = torch.arange(iu.shape[1])
+    tri = torch.maximum(tri, tri.T)
+    ntri = p * (p + 1) // 2
+    return {
+        "G": out[tri.to(out.device)],
+        "b": out[ntri : ntri + p],
+        "sx": out[ntri + p : ntri + 2 * p],
+        "n": torch.tensor(n, dtype=out.dtype, device=out.device),
+        "syy": out[ntri + 2 * p + 1],
+        "sy": out[ntri + 2 * p],
+    }
+
+
+def _terms_reference(U: Tensor, Ut: Tensor, dx: float, dy: float, names) -> dict[str, Tensor]:
+    """Plain version of K2: materialise the named fields (float32), then
+    float64 ``gram_stats`` — the term stack the kernel avoids."""
+    fields = _term_fields(U.to(torch.float32), dx, dy, tuple(names))
+    X = torch.stack([f.reshape(-1) for f in fields], dim=-1)
+    y = Ut.to(torch.float32).reshape(-1)
+    return gram_stats(X.to(torch.float64), y.to(torch.float64))
+
+
+def fused_ks_gram_terms(
+    U: Tensor, Ut: Tensor, *, dx: float, dy: float, names=RICH_TERM_NAMES
+) -> dict[str, Tensor]:
+    """Streaming dictionary + Gram statistics for any list of 1 to 9 terms
+    of ``RICH_TERM_NAMES`` (default: the rich 9-term KS library), in the
+    order given.
+
+    On the CPU this is :func:`_terms_reference`; on a CUDA tensor it
+    launches K2 and raises if the build or the launch fails. Returns float64
+    statistics, n = T * H * W.
+    """
+    names = _term_codes(names)
+    _check_inputs(U, Ut)
+    if U.device.type == "cpu":
+        return _terms_reference(U, Ut, dx, dy, names)
+    from pdx_torch.ops.kernels._build import library
+
+    lib = library()
+    T, H, W = U.shape
+    p = len(names)
+    TH, ntx = _tile(H, 1, _TERMS_MAX_TILE)
+    TW, nty = _tile(W, 1, _TERMS_MAX_TILE)
+    _check_smem(lib.pdx_fused_ks_gram_terms_smem_bytes(TH, TW, p), U.device, "fused_ks_gram_terms")
+    fpc, ntz = _chunks(T, ntx * nty)
+    n_stats = p * (p + 1) // 2 + 2 * p + 2
+    U32, Ut32 = _f32(U), _f32(Ut)
+    partials = torch.empty((ntx * nty * ntz, n_stats), dtype=torch.float64, device=U.device)
+    out = torch.empty(n_stats, dtype=torch.float64, device=U.device)
+    with torch.cuda.device(U.device):
+        rc = lib.pdx_fused_ks_gram_terms(
+            U32.data_ptr(), Ut32.data_ptr(), T, H, W, TH, TW, fpc, ntx, nty, ntz,
+            *_stencil_args(dx, dy), _codes_arg(names), p, partials.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_ks_gram_terms: CUDA launch failed with error {rc}")
+    fused_ks_gram_terms.launches += 1
+    return _terms_stats_from_row(out, p, float(T * H * W))
+
+
+fused_ks_gram_terms.launches = 0  # K2 launches in this process
 
 
 def fused_ks_gram(U: Tensor, Ut: Tensor, *, dx: float, dy: float) -> dict[str, Tensor]:

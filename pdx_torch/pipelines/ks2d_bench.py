@@ -1,19 +1,25 @@
 """KS-2D ground-truth STRidge benchmark — the port's main path.
 
-Port of ``pdx/pipelines/ks2d_bench.py:53-136, 147-191, 281-425, 612-776``:
-simulate (explicit Euler) -> forward-difference u_t -> KS dictionary ->
-Gram statistics -> the 5 x 6 alpha x threshold STRidge grid -> host-side
-selection by (R^2, -n_active, -rmse) -> ground-truth errors + a rollout.
+Port of ``pdx/pipelines/ks2d_bench.py:53-191, 281-425, 612-776``:
+simulate (explicit Euler) -> perturb -> stabilise -> denoise ->
+forward-difference u_t -> KS dictionary -> Gram statistics -> the 5 x 6
+alpha x threshold STRidge grid -> host-side selection by
+(R^2, -n_active, -rmse) -> ground-truth errors + a rollout.
 
 Three branches of the grid-search fast path are ported:
 
 * ``solver="auto"`` / ``"gram"``: a 50k-sample pointwise dataset drawn with
   the reference's host numpy RNG (seed 0), a 70/30 split, the grid on the
-  train Gram statistics, scored on the test rows;
+  train Gram statistics, scored on the test rows (finite or spectral
+  derivatives);
 * ``solver="pallas"``: the full-field statistics from kernel K1
-  (:func:`~pdx_torch.ops.kernels.fused_gram.fused_ks_gram`);
+  (:func:`~pdx_torch.ops.kernels.fused_gram.fused_ks_gram`) for the true
+  library [lap, bih, gradsq], or K2
+  (:func:`~pdx_torch.ops.kernels.fused_gram.fused_ks_gram_terms`) for any
+  other term list (the rich library, advection);
 * ``solver="pallas", method="blockwise"``: the blockwise statistics from
-  kernel K3 (:func:`~pdx_torch.ops.kernels.fused_blockwise.fused_blockwise_gram`).
+  kernel K3 (:func:`~pdx_torch.ops.kernels.fused_blockwise.fused_blockwise_gram`)
+  or K4 (:func:`~pdx_torch.ops.kernels.fused_blockwise.fused_blockwise_gram_terms`).
 
 Options that need modules not ported yet raise ``NotImplementedError``
 naming the slice that brings them.
@@ -35,10 +41,14 @@ from pdx_torch.library.dictionaries import (
     display_names,
 )
 from pdx_torch.library.pointwise import forward_difference_ut
-from pdx_torch.ops.kernels.fused_blockwise import fused_blockwise_gram
-from pdx_torch.ops.kernels.fused_gram import fused_ks_gram
+from pdx_torch.ops.filters import time_smooth_moving_average
+from pdx_torch.ops.kernels.fused_blockwise import fused_blockwise_gram, fused_blockwise_gram_terms
+from pdx_torch.ops.kernels.fused_gram import fused_ks_gram, fused_ks_gram_terms
 from pdx_torch.ops.linalg import gram_stats
+from pdx_torch.ops.spectral import gaussian_smooth_periodic
+from pdx_torch.register.phasecorr import stabilize_translation_sequence
 from pdx_torch.sim.ks2d import Ks2dConfig, simulate_ks2d
+from pdx_torch.sim.perturb import PerturbConfig, apply_perturbation_suite
 from pdx_torch.solve.stridge import stridge_grid
 from pdx_torch.validate.rollout import rollout_rmse_curve_named
 
@@ -127,14 +137,10 @@ class Ks2dBenchConfig:
 
 def _check_supported(cfg: Ks2dBenchConfig) -> None:
     """Raise NotImplementedError for options whose modules are not ported."""
-    slice2 = "lands with slice 2 of the port (see ROADMAP.md, Queue 1)"
+    slice2 = "lands with a later part of slice 2 of the port (see ROADMAP.md, Queue 1)"
     unsupported = {
-        "perturbation != 'none' (sim/perturb.py)": cfg.perturbation != "none",
-        "stabilize_shifts (register/phasecorr.py)": cfg.stabilize_shifts,
-        "denoise_time_window > 1 (ops/filters.py)": cfg.denoise_time_window > 1,
-        "denoise_space_sigma > 0 (ops/spectral.py)": cfg.denoise_space_sigma > 0,
         "method='weakform' (library/weakform.py)": cfg.method == "weakform",
-        "correct_shift_ut (register/phasecorr.py)": cfg.correct_shift_ut,
+        "correct_shift_ut (the build_dataset branch)": cfg.correct_shift_ut,
         "regression != 'standard' (solve/robust.py)": cfg.regression != "standard",
         "robust=True (solve/robust.py)": cfg.robust,
         "solver='qr' (stridge_qr)": cfg.solver == "qr",
@@ -144,19 +150,55 @@ def _check_supported(cfg: Ks2dBenchConfig) -> None:
             raise NotImplementedError(f"{what} {slice2}")
 
 
+def _effective_noise_rel(cfg: Ks2dBenchConfig) -> float:
+    """N2/N5/N6/N7 default to 3% noise when unspecified."""
+    noise_rel = float(cfg.noise_rel)
+    if cfg.perturbation in {"N2_noise", "N5_shifts_noise", "N6_blur_noise", "N7_all"} and noise_rel == 0.0:
+        return 0.03
+    return noise_rel
+
+
 def prepare_frames(cfg: Ks2dBenchConfig, device: str | torch.device | None = None) -> dict[str, Any]:
-    """Simulate the clean trajectory. Returns the field dict of
-    ``pdx.pipelines.ks2d_bench.prepare_frames`` (clean path: perturbation,
-    stabilization and denoising are identities)."""
+    """simulate -> perturb -> stabilise -> denoise, on ``device`` (default:
+    the CUDA card; raises without one). Returns the field dict of
+    ``pdx.pipelines.ks2d_bench.prepare_frames``."""
     _check_supported(cfg)
     sim = Ks2dConfig(
         Nx=cfg.Nx, Ny=cfg.Ny, dt=cfg.dt, n_seconds=cfg.n_seconds, save_every=cfg.save_every
     )
-    U, dx, dy, DT = simulate_ks2d(
+    U_clean, dx, dy, DT = simulate_ks2d(
         sim, dtype=resolve_dtype(cfg.dtype), device=resolve_device(device)
     )
+
+    perturb = PerturbConfig(
+        perturbation=cfg.perturbation,
+        noise_rel=_effective_noise_rel(cfg),
+        noise_seed=cfg.noise_seed,
+        shift_max_px=cfg.shift_max,
+        shift_mode=cfg.shift_mode,
+        blur_sigma=cfg.blur_sigma,
+        drift_per_frame=cfg.drift,
+    )
+    U = apply_perturbation_suite(U_clean, perturb)
+
+    if cfg.stabilize_shifts:
+        U = stabilize_translation_sequence(
+            U, mode=cfg.stabilize_mode, estimate_sigma_px=cfg.stabilize_est_sigma, border="wrap"
+        )
+
+    U_for_ut = U
+    if cfg.denoise_time_window > 1:
+        U_for_ut = time_smooth_moving_average(U_for_ut, cfg.denoise_time_window)
+    U_for_features = U_for_ut
+    if cfg.denoise_space_sigma > 0:
+        if cfg.denoise_space_on == "all":
+            U_for_ut = gaussian_smooth_periodic(U_for_ut, cfg.denoise_space_sigma)
+            U_for_features = U_for_ut
+        else:
+            U_for_features = gaussian_smooth_periodic(U_for_features, cfg.denoise_space_sigma)
+
     return {
-        "U_clean": U, "U": U, "U_for_ut": U, "U_for_features": U,
+        "U_clean": U_clean, "U": U, "U_for_ut": U_for_ut, "U_for_features": U_for_features,
         "dx": dx, "dy": dy, "DT": DT, "sim": sim,
     }
 
@@ -214,6 +256,23 @@ def _fused_blockwise_grid(U_for_ut, U_for_features, DT, dx, dy, alphas, threshol
     Ut = forward_difference_ut(U_for_ut, DT)
     stats = fused_blockwise_gram(
         U_for_features[:-1], Ut, dx=dx, dy=dy, block_t=bt, block_x=bx, block_y=by
+    )
+    return _grid_from_stats(stats, alphas, thresholds)
+
+
+def _fused_fullfield_grid_terms(U_for_ut, U_for_features, DT, dx, dy, alphas, thresholds, names):
+    """:func:`_fused_fullfield_grid` for any other stencil term list (the
+    rich 9-term library and its advection subsets): kernel K2."""
+    Ut = forward_difference_ut(U_for_ut, DT)
+    stats = fused_ks_gram_terms(U_for_features[:-1], Ut, dx=dx, dy=dy, names=names)
+    return _grid_from_stats(stats, alphas, thresholds)
+
+
+def _fused_blockwise_grid_terms(U_for_ut, U_for_features, DT, dx, dy, alphas, thresholds, bt, bx, by, names):
+    """:func:`_fused_blockwise_grid` for any other stencil term list: kernel K4."""
+    Ut = forward_difference_ut(U_for_ut, DT)
+    stats = fused_blockwise_gram_terms(
+        U_for_features[:-1], Ut, dx=dx, dy=dy, names=names, block_t=bt, block_x=bx, block_y=by
     )
     return _grid_from_stats(stats, alphas, thresholds)
 
@@ -278,23 +337,22 @@ def _run_fast_pointwise_grid(cfg: Ks2dBenchConfig, fr: dict[str, Any], rng: np.r
                 "solver='pallas' streams finite-difference stencil terms; "
                 "set derivatives='finite'"
             )
-        if names != TRUE_NAMES:
-            raise NotImplementedError(
-                "solver='pallas' with a term list other than [lap, bih, gradsq] needs "
-                "kernels K2/K4 (fused_ks_gram_terms / fused_blockwise_gram_terms), "
-                "the next kernels of the port (see ROADMAP.md, Queue 2)"
-            )
         # kernel statistics are float64, so the grid runs in float64
         alphas = torch.tensor(GRID_ALPHAS, dtype=torch.float64, device=dev)
         thresholds = torch.tensor(GRID_THRESHOLDS, dtype=torch.float64, device=dev)
         DT, dx, dy = float(fr["DT"]), float(fr["dx"]), float(fr["dy"])
+        args = (U_ut, U_feat, DT, dx, dy, alphas, thresholds)
+        blocks = (int(cfg.block_t), int(cfg.block_x), int(cfg.block_y))
+        # [lap, bih, gradsq] keeps its own kernels (K1/K3), as in pdx
         if cfg.method == "blockwise":
-            grid = _fused_blockwise_grid(
-                U_ut, U_feat, DT, dx, dy, alphas, thresholds,
-                int(cfg.block_t), int(cfg.block_x), int(cfg.block_y),
-            )
+            if names == TRUE_NAMES:
+                grid = _fused_blockwise_grid(*args, *blocks)
+            else:
+                grid = _fused_blockwise_grid_terms(*args, *blocks, tuple(names))
+        elif names == TRUE_NAMES:
+            grid = _fused_fullfield_grid(*args)
         else:
-            grid = _fused_fullfield_grid(U_ut, U_feat, DT, dx, dy, alphas, thresholds)
+            grid = _fused_fullfield_grid_terms(*args, tuple(names))
     else:
         Ut_size = (U_ut.shape[0] - 1) * cfg.Nx * cfg.Ny
         n_sample = int(min(cfg.n_sample, Ut_size))
@@ -365,7 +423,8 @@ VALID_REGRESSIONS = {"standard", "huber", "trimmed", "sign_constrained", "ensemb
 
 
 def run(cfg: Ks2dBenchConfig, device: str | torch.device | None = None) -> dict[str, Any]:
-    """Run the benchmark on ``device`` (default: CUDA when present)."""
+    """Run the benchmark on ``device`` (default: the CUDA card; without one
+    this raises unless ``device="cpu"`` is given)."""
     if cfg.method not in VALID_METHODS:
         raise ValueError(f"method must be one of {sorted(VALID_METHODS)}, got '{cfg.method}'")
     if cfg.regression not in VALID_REGRESSIONS:

@@ -1,14 +1,18 @@
-"""Kernels K1 (fused_ks_gram) and K3 (fused_blockwise_gram) of pdx_torch.
+"""Kernels K1 (fused_ks_gram), K2 (fused_ks_gram_terms), K3
+(fused_blockwise_gram) and K4 (fused_blockwise_gram_terms) of pdx_torch.
 
 On the CPU the wrappers take their plain PyTorch versions, which are held
-to pdx's Pallas kernels in interpret mode at test_pallas.py's own tolerance
-(rtol 2e-4, atol 1e-4 * max|ref|: the TPU kernel sums in float32, the port
-in float64) and to pdx's XLA references on float64 inputs at 1e-5 relative
-to max|ref| (the port computes the fields in float32, as the kernel does).
-The CUDA kernels themselves are compared with the plain versions by the
-``gpu``-marked test, which skips without a card. The JAX side is imported
-inside the tests, so that on a machine without jax the ``gpu`` tests run
-with ``python -m pytest --noconftest -m gpu tests/test_torch_fused_gram.py``.
+to pdx's Pallas kernels in interpret mode at test_pallas.py's own tolerances
+(K1/K3: rtol 2e-4, atol 1e-4 * max|ref|; K2/K4: rtol 3e-4,
+atol 2e-4 * max(|ref|, 1); the TPU kernels sum in float32, the port in
+float64) and to pdx's XLA references on float64 inputs at 1e-5 relative to
+max|ref| (the port computes the fields in float32, as the kernels do). The
+CUDA kernels themselves are compared with the plain versions by the
+``gpu``-marked tests, which skip without a card, each entry within 1e-5 of
+its own Cauchy-Schwarz scale: sqrt(G_ii G_jj) for G_ij, sqrt(G_ii syy) for
+b_i, sqrt(G_ii n) for sx_i, sqrt(n syy) for sy, syy and n for themselves. The JAX side is imported inside the tests, so that on a
+machine without jax the ``gpu`` tests run with
+``python -m pytest --noconftest -m gpu tests/test_torch_fused_gram.py``.
 """
 
 from types import SimpleNamespace
@@ -36,6 +40,17 @@ def _compare(got, want, rtol, atol_rel, floor=0.0):
     for k in KEYS:
         g, w = _np(got[k]), _np(want[k])
         np.testing.assert_allclose(g, w, rtol=rtol, atol=atol_rel * max(np.abs(w).max(), floor), err_msg=k)
+
+
+def _compare_scaled(got, want, tol):
+    """Each entry of each statistic within tol of its Cauchy-Schwarz scale."""
+    d = np.abs(np.diagonal(_np(want["G"])))
+    n, syy = abs(float(_np(want["n"]))), abs(float(_np(want["syy"])))
+    scales = {"G": np.sqrt(np.outer(d, d)), "b": np.sqrt(d * syy), "sx": np.sqrt(d * n),
+              "n": n, "sy": np.sqrt(n * syy), "syy": syy}
+    for k in KEYS:
+        err = np.abs(_np(got[k]) - _np(want[k]))
+        assert np.all(err <= tol * scales[k]), (k, err, tol * scales[k])
 
 
 @pytest.fixture
@@ -136,6 +151,117 @@ class TestK3Plain:
             tfb.fused_blockwise_gram(U, U, dx=1.0, dy=1.0, block_x=0)
 
 
+RICH = tfg.RICH_TERM_NAMES
+NO_ADV = tuple(n for n in RICH if n not in ("ux", "uy"))
+ADV = ("lap", "bih", "gradsq", "ux", "uy")
+
+
+class TestK2Plain:
+    @pytest.mark.parametrize("shape,seed,names,dx,dy", [
+        ((8, 32, 128), 0, RICH, 0.5, 0.25),
+        ((7, 16, 128), 1, RICH, 1.0, 1.0),  # T not a block multiple: pdx pads and corrects <one, one>
+        ((8, 24, 40), 2, ADV, 0.5, 0.5),
+        ((6, 20, 24), 3, NO_ADV, 0.5, 0.5),
+    ])
+    def test_matches_pdx_kernel_interpret(self, jx, shape, seed, names, dx, dy):
+        U, Ut = _inputs(shape, seed)
+        U = 0.3 * U  # KS-like amplitudes keep the f32 TPU sums meaningful
+        want = jx.fg.fused_ks_gram_terms(
+            jx.jnp.asarray(U), jx.jnp.asarray(Ut), dx=dx, dy=dy, names=names, block_t=4, interpret=True
+        )
+        got = tfg.fused_ks_gram_terms(torch.from_numpy(U), torch.from_numpy(Ut), dx=dx, dy=dy, names=names)
+        assert got["G"].shape == (len(names), len(names)) and got["G"].dtype == torch.float64
+        _compare(got, want, 3e-4, 2e-4, 1.0)
+        if "one" in names:
+            i = names.index("one")
+            assert float(got["G"][i, i]) == float(np.prod(shape)) == float(got["sx"][i])
+
+    def test_matches_pdx_reference_f64(self, jx):
+        U, Ut = _inputs((6, 24, 40), 4, np.float64)
+        want = jx.fg._terms_reference(jx.jnp.asarray(U), jx.jnp.asarray(Ut), 0.5, 0.25, RICH)
+        got = tfg._terms_reference(torch.from_numpy(U), torch.from_numpy(Ut), 0.5, 0.25, RICH)
+        _compare(got, want, 1e-5, 1e-5)
+
+    def test_cpu_tensor_takes_plain_version(self):
+        U, Ut = _inputs((4, 16, 16), 5)
+        before = tfg.fused_ks_gram_terms.launches
+        got = tfg.fused_ks_gram_terms(torch.from_numpy(U), torch.from_numpy(Ut), dx=0.5, dy=0.5, names=ADV)
+        want = tfg._terms_reference(torch.from_numpy(U), torch.from_numpy(Ut), 0.5, 0.5, ADV)
+        assert tfg.fused_ks_gram_terms.launches == before
+        for k in KEYS:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+    def test_true_list_equals_k1(self):
+        """The generic path on [lap, bih, gradsq] gives K1's statistics."""
+        U, Ut = _inputs((5, 12, 14), 6)
+        got = tfg.fused_ks_gram_terms(torch.from_numpy(U), torch.from_numpy(Ut), dx=0.5, dy=0.5, names=("lap", "bih", "gradsq"))
+        want = tfg.fused_ks_gram(torch.from_numpy(U), torch.from_numpy(Ut), dx=0.5, dy=0.5)
+        _compare(got, want, 1e-12, 1e-12)
+
+    @pytest.mark.parametrize("names", [(), ("lap", "nope"), RICH + ("u",)])
+    def test_rejects_bad_term_lists(self, names):
+        U = torch.zeros((2, 8, 8))
+        with pytest.raises(ValueError, match="names"):
+            tfg.fused_ks_gram_terms(U, U, dx=1.0, dy=1.0, names=names)
+
+
+class TestK4Plain:
+    @pytest.mark.parametrize("shape,seed,names", [
+        ((9, 32, 128), 0, RICH),
+        ((8, 30, 126), 1, RICH),  # ragged on all three axes
+        ((8, 30, 126), 2, NO_ADV),
+        ((7, 24, 40), 3, ADV),
+    ])
+    def test_matches_pdx_kernel_interpret(self, jx, shape, seed, names):
+        U, Ut = _inputs(shape, seed)
+        U = 0.3 * U
+        kw = dict(block_t=3, block_x=8, block_y=8)
+        want = jx.fb.fused_blockwise_gram_terms(
+            jx.jnp.asarray(U), jx.jnp.asarray(Ut), dx=0.5, dy=0.25, names=names, interpret=True, **kw
+        )
+        got = tfb.fused_blockwise_gram_terms(torch.from_numpy(U), torch.from_numpy(Ut), dx=0.5, dy=0.25, names=names, **kw)
+        assert got["G"].dtype == torch.float64
+        _compare(got, want, 3e-4, 2e-4, 1.0)
+        if "one" in names:  # every block mean of `one` is 1, ragged tails included
+            i = names.index("one")
+            assert float(got["G"][i, i]) == float(got["n"]) == float(got["sx"][i])
+
+    def test_matches_pdx_reference_f64(self, jx):
+        U, Ut = _inputs((8, 30, 126), 4, np.float64)
+        kw = dict(names=RICH, block_t=3, block_x=8, block_y=8)
+        want = jx.fb.fused_blockwise_gram_terms_reference(jx.jnp.asarray(U), jx.jnp.asarray(Ut), 0.5, 0.25, **kw)
+        got = tfb.fused_blockwise_gram_terms_reference(torch.from_numpy(U), torch.from_numpy(Ut), 0.5, 0.25, **kw)
+        _compare(got, want, 1e-5, 1e-5)
+
+    def test_cpu_tensor_takes_plain_version(self):
+        U, Ut = _inputs((7, 20, 20), 5)
+        before = tfb.fused_blockwise_gram_terms.launches
+        got = tfb.fused_blockwise_gram_terms(torch.from_numpy(U), torch.from_numpy(Ut), dx=0.5, dy=0.5, names=NO_ADV, block_t=2)
+        want = tfb.fused_blockwise_gram_terms_reference(
+            torch.from_numpy(U), torch.from_numpy(Ut), 0.5, 0.5, names=NO_ADV, block_t=2, block_x=8, block_y=8
+        )
+        assert tfb.fused_blockwise_gram_terms.launches == before
+        for k in KEYS:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+    def test_rejects_bad_input(self):
+        U = torch.zeros((4, 8, 8))
+        with pytest.raises(ValueError, match="positive"):
+            tfb.fused_blockwise_gram_terms(U, U, dx=1.0, dy=1.0, names=RICH, block_y=0)
+        with pytest.raises(ValueError, match="names"):
+            tfb.fused_blockwise_gram_terms(U, U, dx=1.0, dy=1.0, names=("u3",))
+
+
+def test_terms_stats_layout():
+    """Row layout of K2/K4: Gram upper triangle row-major, b, sx, sy, syy."""
+    p = 3
+    row = torch.arange(p * (p + 1) // 2 + 2 * p + 2, dtype=torch.float64)
+    st = tfg._terms_stats_from_row(row, p, 10.0)
+    assert st["G"].tolist() == [[0, 1, 2], [1, 3, 4], [2, 4, 5]]
+    assert st["b"].tolist() == [6, 7, 8] and st["sx"].tolist() == [9, 10, 11]
+    assert (float(st["sy"]), float(st["syy"]), float(st["n"])) == (12.0, 13.0, 10.0)
+
+
 @pytest.mark.parametrize("n,unit", [(100, 1), (100, 8), (30, 8), (126, 8), (16, 1), (5, 200)])
 def test_tiles_cover_axis_in_whole_blocks(n, unit):
     tile, n_tiles = tfg._tile(n, unit)
@@ -153,21 +279,55 @@ def test_tiles_cover_axis_in_whole_blocks(n, unit):
     ((5, 100, 70), (5, 100, 1)),  # one block spans the frame height
 ])
 def test_kernels_match_plain_on_card(cuda, shape, blocks):
-    """K1 and K3 against their plain versions on the card, 1e-5 of max|plain|."""
+    """K1 and K3 against their plain versions on the card, each entry within
+    1e-5 of its own scale."""
     U, Ut = (torch.from_numpy(a).to(cuda) for a in _inputs(shape, 7))
     k1 = tfg.fused_ks_gram(U, Ut, dx=0.5, dy=0.5)
-    _compare(k1, tfg.fused_ks_gram_reference(U, Ut, 0.5, 0.5), 1e-5, 1e-5)
+    _compare_scaled(k1, tfg.fused_ks_gram_reference(U, Ut, 0.5, 0.5), 1e-5)
     kw = dict(zip(("block_t", "block_x", "block_y"), blocks))
     k3 = tfb.fused_blockwise_gram(U, Ut, dx=0.5, dy=0.5, **kw)
-    _compare(k3, tfb.fused_blockwise_gram_reference(U, Ut, 0.5, 0.5, **kw), 1e-5, 1e-5)
+    _compare_scaled(k3, tfb.fused_blockwise_gram_reference(U, Ut, 0.5, 0.5, **kw), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,blocks,names", [
+    ((1999, 100, 100), (3, 8, 8), RICH),  # the main path
+    ((1999, 100, 100), (3, 8, 8), ADV),  # the main path with advection
+    ((8, 30, 126), (3, 8, 8), NO_ADV),  # ragged on every axis
+    ((8, 30, 126), (3, 8, 8), ADV),
+    ((9, 130, 257), (4, 16, 5), RICH),  # several tiles per axis
+    ((7, 3, 5), (2, 2, 3), ("u",)),  # p = 1, frames smaller than the halo
+    ((5, 100, 70), (5, 100, 1), ("one", "u_lap")),  # one block spans the frame height
+])
+def test_term_kernels_match_plain_on_card(cuda, shape, blocks, names):
+    """K2 and K4 against their plain versions on the card, each entry within
+    1e-5 of its own scale; two launches give the same bits."""
+    U, Ut = (torch.from_numpy(a).to(cuda) for a in _inputs(shape, 9))
+    k2 = tfg.fused_ks_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names)
+    _compare_scaled(k2, tfg._terms_reference(U, Ut, 0.5, 0.5, names), 1e-5)
+    kw = dict(zip(("block_t", "block_x", "block_y"), blocks))
+    k4 = tfb.fused_blockwise_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names, **kw)
+    _compare_scaled(k4, tfb.fused_blockwise_gram_terms_reference(U, Ut, 0.5, 0.5, names=names, **kw), 1e-5)
+    again2 = tfg.fused_ks_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names)
+    again4 = tfb.fused_blockwise_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names, **kw)
+    for k in KEYS:
+        assert torch.equal(k2[k], again2[k]) and torch.equal(k4[k], again4[k]), k
+    if "one" in names:
+        i = names.index("one")
+        assert float(k2["G"][i, i]) == float(np.prod(shape)) and float(k4["G"][i, i]) == float(k4["n"])
 
 
 @pytest.mark.gpu
 def test_wrappers_count_launches_and_refuse_oversized_blocks(cuda):
     U, Ut = (torch.from_numpy(a).to(cuda) for a in _inputs((4, 300, 300), 8))
-    before = (tfg.fused_ks_gram.launches, tfb.fused_blockwise_gram.launches)
+    wrappers = (tfg.fused_ks_gram, tfb.fused_blockwise_gram, tfg.fused_ks_gram_terms, tfb.fused_blockwise_gram_terms)
+    before = [w.launches for w in wrappers]
     tfg.fused_ks_gram(U, Ut, dx=1.0, dy=1.0)
     tfb.fused_blockwise_gram(U, Ut, dx=1.0, dy=1.0)
-    assert (tfg.fused_ks_gram.launches, tfb.fused_blockwise_gram.launches) == (before[0] + 1, before[1] + 1)
+    tfg.fused_ks_gram_terms(U, Ut, dx=1.0, dy=1.0)
+    tfb.fused_blockwise_gram_terms(U, Ut, dx=1.0, dy=1.0, names=RICH)
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
     with pytest.raises(ValueError, match="shared memory"):
         tfb.fused_blockwise_gram(U, Ut, dx=1.0, dy=1.0, block_x=300, block_y=300)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfb.fused_blockwise_gram_terms(U, Ut, dx=1.0, dy=1.0, names=RICH, block_x=300, block_y=300)

@@ -8,7 +8,13 @@ Tolerances:
   truth, so a last-bit difference in those coefficients moves it by ~1e-17,
   below the float64 resolution of the O(0.1) state.
 * solver "pallas", float32 frames: coefficients at rtol 1e-3 — pdx's kernel
-  sums in float32, the port's in float64.
+  sums in float32, the port's in float64 (the rich cases with an absolute
+  floor of 1e-3 * max|coef|, for decoys that STRidge leaves near 0).
+* prepare_frames (perturb, stabilise, denoise), float64: every frame stack
+  at 1e-10 of max|ref| (host-drawn noise is the same on both sides; FFT
+  round-off in the phase correlation and blur is the only difference).
+* derivatives="spectral" on the auto path, float64: coefficients at 1e-8
+  (the rich library's near-zero `one` coefficient: see its test).
 Coefficients are compared, not the selected (alpha, threshold): R^2 ties
 between thresholds may break differently in the last bit.
 """
@@ -29,15 +35,25 @@ import pdx_torch.pipelines.ks2d_bench as tb
 from pdx.ops.linalg import gram_stats as jgram
 from pdx_torch.__main__ import main as cli_main
 from pdx_torch.interop import frames_from_numpy, stats_from_numpy
-from pdx_torch.ops.kernels.fused_blockwise import fused_blockwise_gram
-from pdx_torch.ops.kernels.fused_gram import fused_ks_gram
+from pdx_torch.ops.kernels.fused_blockwise import fused_blockwise_gram, fused_blockwise_gram_terms
+from pdx_torch.ops.kernels.fused_gram import fused_ks_gram, fused_ks_gram_terms
 
 SMALL = dict(grid_search=True, Nx=32, Ny=32, n_seconds=0.2)
 CASES = {
     "auto_f64": dict(),
     "pallas_f32": dict(solver="pallas", dtype="float32"),
     "pallas_blockwise_f32": dict(solver="pallas", dtype="float32", method="blockwise"),
+    "pallas_rich_f32": dict(solver="pallas", dtype="float32", dictionary="rich"),
+    "pallas_blockwise_rich_f32": dict(solver="pallas", dtype="float32", method="blockwise", dictionary="rich"),
+    "pallas_adv_f32": dict(solver="pallas", dtype="float32", include_advection=True),
+    "pallas_blockwise_noadv_f32": dict(
+        solver="pallas", dtype="float32", method="blockwise", dictionary="rich", enforce_no_advection=True
+    ),
 }
+PERTURBED = dict(
+    method="blockwise", dictionary="rich", solver="pallas", perturbation="N5_shifts_noise",
+    shift_mode="jitter", shift_max=1.0, stabilize_shifts=True, denoise_time_window=3, denoise_space_sigma=1.0,
+)
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,6 +97,79 @@ def test_pallas_paths_match_pdx_interpret(case, counter):
     np.testing.assert_allclose(got["coeffs"], want["coeffs"], rtol=1e-3)
     assert _worst_gt(got) < 1.0 and _worst_gt(want) < 1.0
     assert np.isfinite([got["rollout"][k] for k in ("first", "last", "mean")]).all()
+
+
+@pytest.mark.parametrize("case,counter,n_terms", [
+    ("pallas_rich_f32", fused_ks_gram_terms, 9),
+    ("pallas_blockwise_rich_f32", fused_blockwise_gram_terms, 9),
+    ("pallas_adv_f32", fused_ks_gram_terms, 5),
+    ("pallas_blockwise_noadv_f32", fused_blockwise_gram_terms, 7),
+])
+def test_term_list_pallas_paths_match_pdx_interpret(case, counter, n_terms):
+    """Term lists other than [lap, bih, gradsq] go to K2/K4 (plain versions
+    on CPU tensors: no launch) and match pdx's generic Pallas kernels."""
+    before = counter.launches
+    got, want = _port_run(case), _pdx_run(case)
+    assert counter.launches == before
+    assert got["names"] == want["names"] and len(got["coeffs"]) == n_terms
+    c, w = np.asarray(got["coeffs"]), np.asarray(want["coeffs"])
+    np.testing.assert_allclose(c, w, rtol=1e-3, atol=1e-3 * np.abs(w).max())
+    assert _worst_gt(got) < 2.0 and _worst_gt(want) < 2.0
+    assert np.isfinite([got["rollout"][k] for k in ("first", "last", "mean")]).all()
+
+
+def _frames_close(got, want, tol=1e-10):
+    for k in ("U_clean", "U", "U_for_ut", "U_for_features"):
+        w = np.asarray(want[k])
+        assert got[k].dtype == torch.float64 and got[k].shape == w.shape, k
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0, atol=tol * np.abs(w).max(), err_msg=k)
+    assert (got["dx"], got["dy"], got["DT"]) == (want["dx"], want["dy"], want["DT"])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(perturbation="N2_noise"),
+    dict(perturbation="N5_shifts_noise", shift_mode="jitter", shift_max=1.0, stabilize_shifts=True),
+    dict(perturbation="N7_all", denoise_time_window=3, denoise_space_sigma=1.0),
+    dict(perturbation="N1_shifts", stabilize_shifts=True, stabilize_mode="to_prev", denoise_time_window=5,
+         denoise_space_sigma=0.8, denoise_space_on="all"),
+], ids=["N2", "N5_jitter_stabilised", "N7_denoised", "N1_to_prev_denoise_all"])
+def test_prepare_frames_matches_pdx(kw):
+    cfg = dict(SMALL, n_seconds=0.1, **kw)
+    got = tb.prepare_frames(tb.Ks2dBenchConfig(**cfg), "cpu")
+    want = jb.prepare_frames(jb.Ks2dBenchConfig(**cfg))
+    _frames_close(got, want)
+    assert tb._effective_noise_rel(tb.Ks2dBenchConfig(**cfg)) == jb._effective_noise_rel(jb.Ks2dBenchConfig(**cfg))
+
+
+def test_perturbed_blockwise_rich_matches_pdx():
+    """The perturbed configuration of the slice: N5 jitter, stabilised,
+    denoised in time and space, rich blockwise statistics (K4's plain
+    version here). float32 as the Pallas cases: coefficients at rtol 1e-3."""
+    cfg = dict(SMALL, dtype="float32", **PERTURBED)
+    before = fused_blockwise_gram_terms.launches
+    got, want = tb.run(tb.Ks2dBenchConfig(**cfg), "cpu"), jb.run(jb.Ks2dBenchConfig(**cfg))
+    assert fused_blockwise_gram_terms.launches == before
+    c, w = np.asarray(got["coeffs"]), np.asarray(want["coeffs"])
+    assert len(c) == 9 and np.isfinite(c).all()
+    np.testing.assert_allclose(c, w, rtol=1e-3, atol=1e-3 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("dictionary,floor", [("true", 1e-12), ("rich", 1e-6)])
+def test_spectral_derivatives_auto_matches_pdx(dictionary, floor):
+    """derivatives="spectral" on the auto (Gram) path; pdx's fast path builds
+    the dictionary without spectral_cutoff, and so does the port. Rich
+    library: the selected fit keeps the `one` coefficient at ~1e-7 of
+    max|coef|, a value set by round-off divided by the ridge alpha (it
+    shrinks 10x per decade of alpha, in pdx and the port alike), so the
+    absolute floor there is 1e-6 * max|coef|; every other coefficient is
+    held at rtol 1e-8."""
+    kw = {**SMALL, "n_seconds": 0.1, "derivatives": "spectral", "spectral_cutoff": 0.5, "dictionary": dictionary}
+    got, want = tb.run(tb.Ks2dBenchConfig(**kw), "cpu"), jb.run(jb.Ks2dBenchConfig(**kw))
+    assert got["names"] == want["names"]
+    w = np.asarray(want["coeffs"])
+    np.testing.assert_allclose(got["coeffs"], w, rtol=1e-8, atol=floor * np.abs(w).max())
+    rest = [i for i, n in enumerate(got["names"]) if n != "one"]
+    np.testing.assert_allclose(np.asarray(got["coeffs"])[rest], w[rest], rtol=1e-8, atol=1e-12)
 
 
 def test_pdx_trajectory_through_port_grid():
@@ -137,19 +226,13 @@ def test_pdx_stats_through_port_grid_from_stats():
     (dict(regression="nope"), ValueError, "regression must be one of"),
     (dict(solver="pallas", grid_search=False), ValueError, "fused streaming grid path"),
     (dict(solver="pallas", derivatives="spectral"), ValueError, "finite"),
-    (dict(perturbation="N2_noise"), NotImplementedError, "perturb"),
-    (dict(stabilize_shifts=True), NotImplementedError, "stabilize_shifts"),
-    (dict(denoise_time_window=3), NotImplementedError, "denoise_time_window"),
-    (dict(denoise_space_sigma=1.0), NotImplementedError, "denoise_space_sigma"),
     (dict(method="weakform"), NotImplementedError, "weakform"),
     (dict(correct_shift_ut=True), NotImplementedError, "correct_shift_ut"),
     (dict(regression="huber"), NotImplementedError, "robust"),
     (dict(robust=True), NotImplementedError, "robust"),
     (dict(solver="qr"), NotImplementedError, "stridge_qr"),
     (dict(grid_search=False), NotImplementedError, "run_regression"),
-    (dict(solver="pallas", dictionary="rich"), NotImplementedError, "K2/K4"),
     (dict(dictionary="rich", dtype="float32"), NotImplementedError, "QR"),
-    (dict(derivatives="spectral"), NotImplementedError, "spectral"),
 ])
 def test_options_outside_the_slice_raise(kw, exc, match):
     cfg = tb.Ks2dBenchConfig(**{**dict(SMALL, n_seconds=0.01), **kw})
@@ -169,7 +252,7 @@ def test_rich_dictionary_f64_matches_pdx():
 def test_cli(cmd):
     out = io.StringIO()
     with redirect_stdout(out):
-        rc = cli_main([cmd, "--Nx", "16", "--Ny", "16", "--n-seconds", "0.05", "--grid-search", "--solver", "pallas"])
+        rc = cli_main([cmd, "--Nx", "16", "--Ny", "16", "--n-seconds", "0.05", "--grid-search", "--solver", "pallas", "--device", "cpu"])
     assert rc == 0
     text = out.getvalue()
     if cmd == "ks2d-bench-json":
@@ -177,3 +260,13 @@ def test_cli(cmd):
         assert res["names"] == ["lap", "bih", "gradsq"] and res["config"]["solver"] == "pallas"
     else:
         assert "Ground-truth comparison" in text and "Rollout RMSE" in text
+
+
+def test_cli_without_device_needs_a_card(monkeypatch):
+    """Entry points run on the card unless the caller asks for the CPU: with
+    no card visible, the CLI without --device raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cli_main(["ks2d-bench", "--Nx", "16", "--Ny", "16", "--n-seconds", "0.05", "--grid-search", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tb.run(tb.Ks2dBenchConfig(**dict(SMALL, n_seconds=0.01)))

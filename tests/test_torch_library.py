@@ -66,11 +66,15 @@ def test_dictionary_rich(stack, drop):
 
 
 def test_dictionary_names_and_spectral_deferred(stack):
+    """Display names match pdx; spectral derivatives now run (their parity
+    is in test_torch_spectral.py) and an unknown kind still raises."""
     assert tdict.TERM_DISPLAY == jdict.TERM_DISPLAY
     assert tdict.KS_GROUND_TRUTH == jdict.KS_GROUND_TRUTH
     assert tdict.display_names(["lap", "bih", "zz"]) == jdict.display_names(["lap", "bih", "zz"])
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tdict.build_dictionary_true(torch.from_numpy(stack), 0.5, 0.5, deriv="spectral")
+    names, terms = tdict.build_dictionary_true(torch.from_numpy(stack), 0.5, 0.5, deriv="spectral")
+    assert names == ["lap", "bih", "gradsq"] and terms.shape == (3,) + stack.shape
+    with pytest.raises(ValueError, match="deriv"):
+        tdict.build_dictionary_true(torch.from_numpy(stack), 0.5, 0.5, deriv="wavelet")
 
 
 @pytest.mark.parametrize("shape,blocks", [

@@ -1,4 +1,5 @@
-"""pdx_torch must never import jax (nor pdx, whose __init__ imports jax)."""
+"""pdx_torch and chip_smoke.py must never import jax (nor pdx, whose
+__init__ imports jax)."""
 
 import os
 import subprocess
@@ -11,6 +12,9 @@ PROBE = """
 import sys
 import pdx_torch, pdx_torch.__main__, pdx_torch.interop, pdx_torch.pipelines.ks2d_bench
 import pdx_torch.ops.kernels._build, pdx_torch.ops.kernels.fused_gram, pdx_torch.ops.kernels.fused_blockwise
+import pdx_torch.ops.spectral, pdx_torch.ops.interp, pdx_torch.ops.filters
+import pdx_torch.sim.perturb, pdx_torch.register.phasecorr
+import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "pdx.")) or m == "pdx")
 assert not bad, bad
 print("clean")

@@ -40,9 +40,14 @@ class TestPrecisionPin:
         assert torch.get_float32_matmul_precision() == "highest"
 
     def test_resolve_device_and_dtype(self):
+        """No silent CPU fallback: without a card resolve_device() raises."""
         assert pdx_torch.resolve_device("cpu") == torch.device("cpu")
-        want = "cuda" if torch.cuda.is_available() else "cpu"
-        assert pdx_torch.resolve_device().type == want
+        if torch.cuda.is_available():
+            assert pdx_torch.resolve_device().type == "cuda"
+        else:
+            for asked in (None, "cuda"):
+                with pytest.raises(RuntimeError, match="no CUDA card"):
+                    pdx_torch.resolve_device(asked)
         assert pdx_torch.resolve_dtype("float32") is torch.float32
         assert pdx_torch.resolve_dtype("float64") is torch.float64
         with pytest.raises(ValueError, match="dtype"):

@@ -17,7 +17,11 @@ Phases, each of which exits non-zero on failure:
    bitwise repeatable; median CUDA-event times of kernel and plain, and
    each kernel's bound (the larger of its bytes over 3.35 TB/s and its
    float64 operations over 67 TFLOP/s, the H100 SXM data sheet's FP64 rate
-   through the tensor cores);
+   through the tensor cores). K2 and K4 are also checked and timed on the
+   main path's float64 input (its bound counts float64 bytes), through the
+   wrapper as the path calls it; each kernel's registers a thread and
+   resident CTAs per SM at the main shape come from a C query
+   (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. the KS-2D benchmark's main paths, ``pipelines.ks2d_bench.run`` at the
    full default size (100x100, 2000 Euler steps, float64): solver auto,
    pallas (K1), pallas blockwise (K3), pallas rich (K2), pallas blockwise
@@ -101,9 +105,11 @@ def _check_stats(name: str, got: dict, want: dict) -> tuple[float, float]:
     return worst, worst_rel
 
 
-def _bound(blockwise: bool, shape: tuple[int, int, int], names: tuple[str, ...], blocks=(3, 8, 8)) -> tuple[float, str]:
+def _bound(
+    blockwise: bool, shape: tuple[int, int, int], names: tuple[str, ...], blocks=(3, 8, 8), itemsize: int = 4
+) -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take for one
-    call. Bytes: U and Ut read once (float32), the S statistics written
+    call. Bytes: U and Ut read once (``itemsize`` bytes a value), the S statistics written
     once. Operations: the float64 work the statistics need, for the q terms
     other than ``one`` (its entries are sx, n and sy and need no product):
     one FMA (2 flop) per Gram, b and syy entry and one add per sx and sy
@@ -123,9 +129,37 @@ def _bound(blockwise: bool, shape: tuple[int, int, int], names: tuple[str, ...],
         flops = n * (q + 1) + rows * (q + 1 + stat_flops)
     else:
         flops = n * stat_flops
-    t_bytes = (2 * n * 4 + n_stats * 8) / HBM_BYTES_PER_S
+    t_bytes = (2 * n * itemsize + n_stats * 8) / HBM_BYTES_PER_S
     t_ops = flops / FP64_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _print_occupancy(lib, kg, kb, card: str) -> None:
+    """Registers a thread and resident CTAs per SM of each kernel at the main
+    shape's launch (100 x 100 frames, 3 x 8 x 8 blocks)."""
+    import ctypes
+
+    TH, TW = kg._tile(100, 1)[0], kg._tile(100, 1)[0]
+    BH, BW = kg._tile(100, 8)[0], kg._tile(100, 8)[0]
+    KH, KW = kg._tile(100, 1, kg._TERMS_MAX_TILE)[0], kg._tile(100, 1, kg._TERMS_MAX_TILE)[0]
+    kbx, kby, G, _, _ = kb._blockwise_plan(100, 100, 8, 8)
+    queries = {
+        "fused_ks_gram": lambda r, c: lib.pdx_fused_ks_gram_occupancy(TH, TW, r, c),
+        "fused_blockwise_gram": lambda r, c: lib.pdx_fused_blockwise_occupancy(BH, BW, 8, 8, r, c),
+    }
+    for f64 in (0, 1):
+        kind = "float64" if f64 else "float32"
+        for p in (9, 5):  # two instances: X~ wider than 8 columns or not
+            queries[f"fused_ks_gram_terms {kind} p={p}"] = (
+                lambda r, c, f64=f64, p=p: lib.pdx_fused_ks_gram_terms_occupancy(KH, KW, f64, p, r, c))
+        queries[f"fused_blockwise_gram_terms {kind}"] = (
+            lambda r, c, f64=f64: lib.pdx_fused_blockwise_terms_occupancy(kbx, kby, 8, 8, G, f64, r, c))
+    for name, query in queries.items():
+        regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
+        rc = query(ctypes.byref(regs), ctypes.byref(ctas))
+        if rc != 0:
+            raise RuntimeError(f"occupancy query of {name} failed with CUDA error {rc}")
+        print(f"[occupancy] {name}: {regs.value} registers a thread, {ctas.value} resident CTAs per SM ({card})")
 
 
 def main() -> int:
@@ -151,6 +185,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] {time.perf_counter() - t0:.2f} s (sources {_build.source_hash()})")
+    _print_occupancy(_build.library(), kg, kb, card)
 
     # 2. kernels vs plain versions on the card
     kw3 = dict(block_t=3, block_x=8, block_y=8)
@@ -212,6 +247,26 @@ def main() -> int:
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
                     f"kernel at {100 * bound_ms / ms:.1f}% of it) ({card})"
                 )
+        if main_shape:  # K2/K4 on the path's own float64 input, through the wrapper
+            U64 = torch.from_numpy(rng.normal(size=shape)).to(dev)
+            Ut64 = torch.from_numpy(rng.normal(size=shape)).to(dev)
+            for name, s in specs.items():
+                if s["counter"] not in (kg.fused_ks_gram_terms, kb.fused_blockwise_gram_terms):
+                    continue
+                for names in s["main"]:
+                    label = f"{name} {shape} p={len(names)} float64"
+                    got, again = s["wrapper"](U64, Ut64, names), s["wrapper"](U64, Ut64, names)
+                    err, rel = _check_stats(label, got, s["plain"](U64, Ut64, names))
+                    if not all(torch.equal(got[k], again[k]) for k in STAT_KEYS):
+                        raise AssertionError(f"{label}: differs between two runs")
+                    ms = _time_ms(lambda: s["wrapper"](U64, Ut64, names))
+                    bound_ms, bound_by = _bound(s["blockwise"], shape, names, itemsize=8)
+                    print(
+                        f"[kernel] {label}: max|err| {err:.3e} (at most {rel:.1e} of an entry's scale), "
+                        f"wrapper {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                        f"at {100 * bound_ms / ms:.1f}% of it) ({card})"
+                    )
+            del U64, Ut64
         del U, Ut
 
     # 3. the main paths at full size; counters set to 0 before each run

@@ -11,169 +11,224 @@
 // materialised.
 //
 // What bounds it on the card: memory. It reads U and Ut once (~160 MB at
-// the main path's (1999, 100, 100) float32 shape, 0.048 ms at 3.35 TB/s);
-// the block sums are p + 1 float64 adds a sample (0.006 ms at p = 9) and
-// the Gram of the ~0.1 M block rows is negligible.
+// the main path's (1999, 100, 100) float32 shape, 0.048 ms at 3.35 TB/s;
+// twice that for float64 input, which it reads directly); the block sums
+// are p + 1 float64 adds a sample and the Gram of the ~0.1 M block rows is
+// small. It is a stencil plus a segmented reduction.
 //
-// Design: K3's structure. A CTA's tile is a whole number of (bx, by) blocks
-// and the CTA owns whole temporal blocks, so every block sum completes
-// inside one CTA. Per frame, one warp per spatial block sums the block's
-// p term fields and u_t over its points (lanes stride the block, then a
-// fixed shuffle order) into p + 1 float64 shared-memory sums. After the
-// temporal block's last frame the sums become means, and the S statistics
-// of the block-mean rows are accumulated with K2's scheme: each warp owns a
-// fixed subset of the statistics, its lanes striding over the blocks. No
-// atomics; two launches give the same bits. The block mean of `one` is
-// exactly 1, ragged tails included (pdx masks padded frames at :121-127 for
-// the same result; here there is no padding).
-#include "gram_common.cuh"
+// Design. A CTA's tile is kbx x kby whole (bx, by) blocks (the wrapper picks
+// kbx, kby so that the ragged edge wastes little) and the CTA owns whole
+// temporal blocks, so every block sum completes inside one CTA. G threads
+// (a power of two, G | 32) share a spatial block: thread g owns the block's
+// valid points g, g + G, ... for the whole temporal block and sums the
+// fixed columns [u, u^2, u_x, u_y, lap, bih, |grad u|^2, u*lap, u_t] of
+// those points in nine float64 registers, frame after frame, with no
+// per-term selection and no division (points stepped by (row, column)).
+// Once per temporal block the G threads reduce their sums by a fixed
+// xor-shuffle tree and the block's first thread writes its mean row to
+// shared memory, beside a column of ones for the blocks inside the frame;
+// then every warp adds its share of the block-mean rows to its Gram on the
+// FP64 tensor cores (K2's mma.sync m16n8k4 .f64 and column map), keeping
+// its fragments in shared memory between temporal blocks, and the warps'
+// fragments are summed in warp order at the end. Frame pipeline as K2's,
+// with the tile's u_t staged by cp.async beside the patch: two
+// __syncthreads() a frame. No atomics; two launches give the same bits.
+// The block mean of `one` is exactly 1, ragged tails included (pdx masks
+// padded frames at :121-127 for the same result; here there is no padding).
+//
+// Measured (tools/terms_kernel_ablation.py, PERF.md): the point loop takes
+// the most time, then issuing the patch's 4-byte cp.async copies and the
+// ring; waiting for the copies costs little.
+#include "terms_common.cuh"
 
 namespace pdx {
 
-// grid = (tiles along H, tiles along W, temporal-block chunks); block = kThreads.
-// The tile is TH x TW = (kbx * bx) x (kby * by) points.
-__global__ void fused_blockwise_gram_terms_kernel(const float* __restrict__ U,
-                                                  const float* __restrict__ Ut, int T,
-                                                  int H, int W, int bt, int bx, int by,
-                                                  int TH, int TW, int tblocks_per_cta,
-                                                  Stencil s, TermSpec spec,
-                                                  double* __restrict__ partials) {
-  extern __shared__ float smem[];
-  const size_t n_float = stencil_smem_floats(TH, TW);
-  float* su = smem;
-  float* sl = smem + (TH + 4) * (TW + 4);
-  double* bacc = reinterpret_cast<double*>(smem + n_float + (n_float & 1));  // [nblk][p + 1]
-
-  const int p = spec.p, nc = p + 1;
-  const int kbx = TH / bx, kby = TW / by, nblk = kbx * kby;
-  const int nbx = (H + bx - 1) / bx, nby = (W + by - 1) / by, nbt = (T + bt - 1) / bt;
+// grid = (tiles along H, tiles along W, temporal-block chunks);
+// block = kbx * kby * G threads rounded up to a warp, at most kThreads.
+template <typename In>
+__global__ void __launch_bounds__(kThreads, 3)
+fused_blockwise_gram_terms_kernel(const In* __restrict__ U, const In* __restrict__ Ut, int T,
+                                  int H, int W, int bt, int bx, int by, int kbx, int kby,
+                                  int G, int tblocks_per_cta, Stencil s, TermSpec spec,
+                                  double* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int TH = kbx * bx, TW = kby * by, nblk = kbx * kby, rs = sample_stride(nblk);
   const int x0 = blockIdx.x * TH, y0 = blockIdx.y * TW;
-  const int bi0 = blockIdx.x * kbx, bj0 = blockIdx.y * kby;
-  // the blocks of this tile that lie in the frame: a vkbx x vkby corner
-  const int vkbx = min(kbx, nbx - bi0), vkby = min(kby, nby - bj0), nvalid = vkbx * vkby;
-  const int tb_begin = blockIdx.z * tblocks_per_cta;
-  const int tb_end = min(nbt, tb_begin + tblocks_per_cta);
+  const PipeLayout L = pipe_layout(TH, TW, TH * TW, sizeof(In) == 8, 0);
+  const FramePipe<In> pipe(
+      smem, L, TH, TileSpan{TW, W, min(TH, H - x0), min(TW, W - y0), x0 * W + y0});
+  float* sl = reinterpret_cast<float*>(smem + L.sl);
+  double* brow = reinterpret_cast<double*>(smem + L.extra);  // [kStored][rs] block-mean rows
+  double* red = brow + kStored * rs;  // the warps' fragments between temporal blocks
+
+  const int nbt = (T + bt - 1) / bt;
+  const int t_begin = blockIdx.z * tblocks_per_cta * bt;
+  const int t_end = min(T, min(nbt, (blockIdx.z + 1) * tblocks_per_cta) * bt);
   const long long frame = (long long)H * W;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
-  const int bsize = bx * by;
+  const int warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  // the tile's blocks inside the frame: a vkbx x vkby corner, whose rows
+  // are the first nvalid of brow
+  const int vkbx = min(kbx, (H + bx - 1) / bx - blockIdx.x * kbx);
+  const int vkby = min(kby, (W + by - 1) / by - blockIdx.y * kby), nvalid = vkbx * vkby;
 
-  int sa[kSlots], sb[kSlots];
-  double acc[kSlots];
-  warp_slots(spec, sa, sb);
-#pragma unroll
-  for (int m = 0; m < kSlots; ++m) acc[m] = 0.0;
-  for (int i = threadIdx.x; i < nc * nblk; i += blockDim.x) bacc[i] = 0.0;
+  // this thread's spatial block and its valid points, stepped without `%`
+  const int gid = threadIdx.x / G, g = threadIdx.x - gid * G;
+  const int bi = gid / kby, bj = gid - bi * kby;
+  const int rx0 = bi * bx, cy0 = bj * by;  // the block's origin in the tile
+  const bool mine = gid < nblk && bi < vkbx && bj < vkby;
+  const int row = bi * vkby + bj;
+  const int vbx = mine ? min(bx, H - x0 - rx0) : 0, vby = mine ? min(by, W - y0 - cy0) : 0;
+  const int nv = vbx * vby;
+  const int r_first = nv > 0 ? g / vby : 0, c_first = nv > 0 ? g - r_first * vby : 0;
+  const int dr = nv > 0 ? G / vby : 0, dc = nv > 0 ? G - dr * vby : 0;
+  const LaneColumns lc = lane_columns(spec, rs);
+  const Divisors d = make_divisors(s);
 
-  for (int tb = tb_begin; tb < tb_end; ++tb) {
-    const int t0 = tb * bt, t1 = min(T, t0 + bt);
-    for (int t = t0; t < t1; ++t) {
-      load_patch(U + t * frame, H, W, x0, y0, TH, TW, su);
-      __syncthreads();
-      patch_laplacian(su, TH, TW, s, sl);
-      __syncthreads();
-      const float* ut = Ut + t * frame;
-      // warp `warp` owns spatial blocks warp, warp + nwarp, ... for every
-      // frame, so its shared sums need no atomics
-      for (int j = warp; j < nblk; j += nwarp) {
-        const int bi = j / kby, bj = j - bi * kby;
-        double v[kMaxTerms + 1];  // p term sums, then u_t's in v[kMaxTerms]
+  constexpr int kSums = kStored - 1;  // the fields and u_t; column 9 is the constant
+  double v[kSums];  // this thread's sums over its points
 #pragma unroll
-        for (int c = 0; c <= kMaxTerms; ++c) v[c] = 0.0;
-        for (int q = lane; q < bsize; q += 32) {
-          const int r = bi * bx + q / by, c = bj * by + q % by;
-          const int gx = x0 + r, gy = y0 + c;
-          if (gx >= H || gy >= W) continue;
-          const PointFields f = point_fields(su, sl, TW, r, c, s);
-#pragma unroll
-          for (int jj = 0; jj < kMaxTerms; ++jj)
-            if (jj < p) v[jj] += term_value(spec.code[jj], f);
-          v[kMaxTerms] += ut[(long long)gx * W + gy];
-        }
-#pragma unroll
-        for (int c = 0; c <= kMaxTerms; ++c) {
-          if (c < p || c == kMaxTerms) {  // warp-uniform
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              v[c] += __shfl_down_sync(0xffffffffu, v[c], off);
-          }
-        }
-        if (lane == 0) {
-          double* b = bacc + j * nc;
-#pragma unroll
-          for (int c = 0; c < kMaxTerms; ++c)
-            if (c < p) b[c] += v[c];
-          b[p] += v[kMaxTerms];
-        }
-      }
-      __syncthreads();  // the next frame overwrites su / sl; bacc complete
-    }
-    // block sums -> block means, for the blocks inside the frame
-    for (int j = threadIdx.x; j < nblk; j += blockDim.x) {
-      const int gbx = bi0 + j / kby, gby = bj0 + j % kby;
-      if (gbx < nbx && gby < nby) {
-        const double cnt = (double)(t1 - t0) * (double)min(bx, H - gbx * bx) *
-                           (double)min(by, W - gby * by);
-        for (int c = 0; c < nc; ++c) bacc[j * nc + c] /= cnt;
-      }
-    }
-    __syncthreads();
-    // statistics of the block-mean rows: warps own statistics, lanes stride blocks
-    for (int jv = lane; jv < nvalid; jv += 32) {
-      const double* row = bacc + ((jv / vkby) * kby + jv % vkby) * nc;
-#pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        if (sa[m] < 0) continue;  // warp-uniform
-        acc[m] += row[sa[m]] * (sb[m] == kOneColumn ? 1.0 : row[sb[m]]);
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nc * nblk; i += blockDim.x) bacc[i] = 0.0;
-    __syncthreads();
+  for (int m = 0; m < kSums; ++m) v[m] = 0.0;
+
+  build_offsets(H, W, x0, y0, TH, TW, reinterpret_cast<int*>(smem + L.goff));
+  for (int i = threadIdx.x; i < kStored * rs + nwarp * 256; i += blockDim.x)
+    brow[i] = i >= kOneColumn * rs && i < kOneColumn * rs + nvalid ? 1.0 : 0.0;
+  __syncthreads();
+  if (t_begin < t_end) {
+    pipe.issue(U + t_begin * frame, Ut + t_begin * frame, 0);
+    pipe.land(0);
   }
+  __syncthreads();
+
+  int nf = 0;  // frames of the current temporal block seen so far
+  for (int t = t_begin; t < t_end; ++t) {
+    const int cur = (t - t_begin) & 1;
+    const float* su = pipe.patch(cur);
+    const float* st = pipe.tile(cur) + rx0 * TW + cy0;
+    ring_laplacian(su, TH, TW, d, sl);
+    __syncthreads();  // the ring is complete; the other buffers are free
+    const bool more = t + 1 < t_end;
+    if (more) pipe.issue(U + (t + 1) * frame, Ut + (t + 1) * frame, cur ^ 1);
+
+    int r = r_first, c = c_first;
+    for (int q = g; q < nv; q += G) {
+      float f[kStored];
+      stored_values(point_fields(su, sl, TW, rx0 + r, cy0 + c, d), st[r * TW + c], f);
+#pragma unroll
+      for (int m = 0; m < kSums; ++m) v[m] += (double)f[m];
+      r += dr;
+      c += dc;
+      if (c >= vby) { c -= vby; ++r; }
+    }
+
+    const bool block_done = ++nf == bt || !more;
+    if (block_done) {  // CTA-uniform
+#pragma unroll
+      for (int m = 0; m < kSums; ++m)
+        for (int off = G >> 1; off > 0; off >>= 1)
+          v[m] += __shfl_xor_sync(0xffffffffu, v[m], off);
+      if (g == 0 && nv > 0) {
+        const double inv = 1.0 / ((double)nf * (double)nv);  // one division a block
+#pragma unroll
+        for (int m = 0; m < kSums; ++m) brow[m * rs + row] = v[m] * inv;
+      }
+#pragma unroll
+      for (int m = 0; m < kSums; ++m) v[m] = 0.0;
+    }
+
+    if (more) pipe.land(cur ^ 1);
+    __syncthreads();  // the next frame and the block-mean rows are in place
+    if (block_done) {  // each warp adds its chunks of the block-mean rows
+      double acc[2][4];
+      load_fragments(red, acc);
+      if (spec.p + 2 > 8) {
+        for (int k = warp; 4 * k < nvalid; k += nwarp) gram_chunk<true>(brow, lc, k, acc);
+      } else {
+        for (int k = warp; 4 * k < nvalid; k += nwarp) gram_chunk<false>(brow, lc, k, acc);
+      }
+      store_fragments(acc, red);
+      nf = 0;
+    }
+  }
+  __syncthreads();
   const int cta = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  write_slots_row(acc, spec.n_stats, partials + (long long)cta * spec.n_stats);
+  write_gram_row(nwarp, spec, red, partials + (long long)cta * spec.n_stats);
 }
 
-inline size_t blockwise_terms_smem_bytes(int TH, int TW, int bx, int by, int p) {
-  const size_t n_float = stencil_smem_floats(TH, TW);
-  return (n_float + (n_float & 1)) * sizeof(float) +
-         (size_t)(p + 1) * (TH / bx) * (TW / by) * sizeof(double);
+inline int blockwise_threads(int kbx, int kby, int G) { return (kbx * kby * G + 31) / 32 * 32; }
+
+inline PipeLayout blockwise_terms_layout(int kbx, int kby, int bx, int by, int G, bool f64) {
+  const size_t rows = (size_t)kStored * sample_stride(kbx * kby) * sizeof(double);
+  const size_t red = (size_t)(blockwise_threads(kbx, kby, G) / 32) * 256 * sizeof(double);
+  return pipe_layout(kbx * bx, kby * by, kbx * bx * kby * by, f64, rows + red);
+}
+
+template <typename In>
+int launch_blockwise_terms(const In* U, const In* Ut, int T, int H, int W, int bt, int bx, int by,
+                           int kbx, int kby, int G, int tblocks_per_cta, int grid_x, int grid_y,
+                           int grid_z, Stencil s, const TermSpec& spec, double* partials,
+                           double* out, cudaStream_t st) {
+  const size_t smem = blockwise_terms_layout(kbx, kby, bx, by, G, sizeof(In) == 8).total;
+  cudaError_t err = cudaFuncSetAttribute(fused_blockwise_gram_terms_kernel<In>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_blockwise_gram_terms_kernel<In>
+      <<<dim3(grid_x, grid_y, grid_z), blockwise_threads(kbx, kby, G), smem, st>>>(
+          U, Ut, T, H, W, bt, bx, by, kbx, kby, G, tblocks_per_cta, s, spec, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_rows_kernel<<<spec.n_stats, kThreads, 0, st>>>(partials, grid_x * grid_y * grid_z,
+                                                         spec.n_stats, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace pdx
 
-// Shared memory one CTA needs for a TH x TW tile of (bx, by) blocks and p
-// terms; the wrapper checks it against the card's per-block limit.
-extern "C" long long pdx_fused_blockwise_terms_smem_bytes(int TH, int TW, int bx, int by,
-                                                          int p) {
-  return (long long)pdx::blockwise_terms_smem_bytes(TH, TW, bx, by, p);
+// Shared memory one CTA needs for a tile of kbx x kby (bx, by) blocks, G
+// threads a block (f64:
+// float64 input); the wrapper checks it against the card's per-block limit.
+extern "C" long long pdx_fused_blockwise_terms_smem_bytes(int kbx, int kby, int bx, int by,
+                                                          int G, int f64) {
+  return (long long)pdx::blockwise_terms_layout(kbx, kby, bx, by, G, f64 != 0).total;
 }
 
-// C interface (bound with ctypes). codes: p indices into RICH_TERM_NAMES
-// (host memory, copied here into the kernel's by-value TermSpec). partials
-// holds grid_x*grid_y*grid_z rows of S doubles; out receives the S
-// statistics. Returns a cudaError_t (cudaErrorInvalidValue for a bad list).
-extern "C" int pdx_fused_blockwise_gram_terms(const float* U, const float* Ut, int T, int H,
-                                              int W, int bt, int bx, int by, int TH, int TW,
-                                              int tblocks_per_cta, int grid_x, int grid_y,
-                                              int grid_z, float dx2, float dy2, float two_dx,
-                                              float two_dy, const int* codes, int p,
-                                              double* partials, double* out, void* stream) {
+// Registers a thread and resident CTAs per SM of the kernel at this launch shape.
+extern "C" int pdx_fused_blockwise_terms_occupancy(int kbx, int kby, int bx, int by, int G,
+                                                   int f64, int* regs, int* ctas) {
+  const size_t smem = pdx::blockwise_terms_layout(kbx, kby, bx, by, G, f64 != 0).total;
+  const int threads = pdx::blockwise_threads(kbx, kby, G);
+  return f64 ? pdx::kernel_occupancy(pdx::fused_blockwise_gram_terms_kernel<double>, threads,
+                                     smem, regs, ctas)
+             : pdx::kernel_occupancy(pdx::fused_blockwise_gram_terms_kernel<float>, threads,
+                                     smem, regs, ctas);
+}
+
+// C interface (bound with ctypes). U and Ut: contiguous (T, H, W), float64
+// if f64 else float32. The tile is kbx x kby blocks of bx x by points, G
+// threads (a power of two <= 32) to a block, kbx * kby * G <= 256. codes: p
+// indices into RICH_TERM_NAMES (host memory, copied here into the kernel's
+// by-value TermSpec). partials holds grid_x*grid_y*grid_z rows of S doubles;
+// out receives the S statistics. Returns a cudaError_t
+// (cudaErrorInvalidValue for a bad list or launch shape).
+extern "C" int pdx_fused_blockwise_gram_terms(const void* U, const void* Ut, int f64, int T,
+                                              int H, int W, int bt, int bx, int by, int kbx,
+                                              int kby, int G, int tblocks_per_cta, int grid_x,
+                                              int grid_y, int grid_z, float dx2, float dy2,
+                                              float two_dx, float two_dy, const int* codes,
+                                              int p, double* partials, double* out,
+                                              void* stream) {
   pdx::TermSpec spec;
   if (!pdx::make_term_spec(codes, p, &spec)) return (int)cudaErrorInvalidValue;
+  if (G < 1 || G > 32 || (G & (G - 1)) || kbx * kby * G > pdx::kThreads)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = pdx::blockwise_terms_smem_bytes(TH, TW, bx, by, p);
-  cudaError_t err = cudaFuncSetAttribute(pdx::fused_blockwise_gram_terms_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const pdx::Stencil s{dx2, dy2, two_dx, two_dy};
-  pdx::fused_blockwise_gram_terms_kernel<<<dim3(grid_x, grid_y, grid_z), pdx::kThreads,
-                                           smem, st>>>(U, Ut, T, H, W, bt, bx, by, TH, TW,
-                                                       tblocks_per_cta, s, spec, partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pdx::reduce_rows_kernel<<<spec.n_stats, pdx::kThreads, 0, st>>>(
-      partials, grid_x * grid_y * grid_z, spec.n_stats, out);
-  return (int)cudaGetLastError();
+  if (f64)
+    return pdx::launch_blockwise_terms(static_cast<const double*>(U),
+                                       static_cast<const double*>(Ut), T, H, W, bt, bx, by, kbx,
+                                       kby, G, tblocks_per_cta, grid_x, grid_y, grid_z, s, spec,
+                                       partials, out, st);
+  return pdx::launch_blockwise_terms(static_cast<const float*>(U), static_cast<const float*>(Ut),
+                                     T, H, W, bt, bx, by, kbx, kby, G, tblocks_per_cta, grid_x,
+                                     grid_y, grid_z, s, spec, partials, out, st);
 }

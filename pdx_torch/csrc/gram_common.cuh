@@ -17,7 +17,7 @@
 // ring, then bih and |grad u|^2 at the interior points. Each CTA writes one
 // row of 14 partial sums; reduce_rows_kernel sums the rows in a fixed order.
 // No float atomics anywhere, so two runs give the same bits. K2 and K4 take
-// any term list (TermSpec below) and write rows of S statistics.
+// any term list and write rows of S statistics (terms_common.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -123,111 +123,6 @@ static __global__ void reduce_rows_kernel(const double* __restrict__ part, int r
 // Patch + Laplacian ring, in floats.
 __host__ __device__ inline size_t stencil_smem_floats(int TH, int TW) {
   return (size_t)(TH + 4) * (TW + 4) + (size_t)(TH + 2) * (TW + 2);
-}
-
-// ---------------------------------------------------------------------------
-// Term lists (K2, K4): any 1..9 terms of the rich KS vocabulary, in the
-// order of pdx_torch.ops.kernels.fused_gram.RICH_TERM_NAMES:
-//   0 one  1 u  2 u^2  3 u_x  4 u_y  5 lap  6 bih  7 |grad u|^2  8 u*lap
-// For p terms there are S = p(p+1)/2 + 2p + 2 statistics, in the order of
-// pdx's _kernel_terms: the Gram upper triangle row-major (i <= j), b_i, sx_i,
-// sy, syy. Statistic k is the sum over samples of column sa[k] times column
-// sb[k], where columns 0..p-1 are the terms, column p is u_t and column -1
-// is the constant 1.
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxTerms = 9;
-constexpr int kMaxTermStats = kMaxTerms * (kMaxTerms + 1) / 2 + 2 * kMaxTerms + 2;  // 65
-constexpr int kWarps = kThreads / 32;
-// statistics a warp owns: warp w owns w, w + kWarps, w + 2 kWarps, ...
-constexpr int kSlots = (kMaxTermStats + kWarps - 1) / kWarps;  // 9
-constexpr int kOneColumn = -1;
-
-struct TermSpec {
-  int p, n_stats;
-  signed char code[kMaxTerms];
-  signed char sa[kMaxTermStats], sb[kMaxTermStats];
-};
-
-// Build the statistic table of a term list; false if the list is invalid.
-inline bool make_term_spec(const int* codes, int p, TermSpec* spec) {
-  if (p < 1 || p > kMaxTerms) return false;
-  spec->p = p;
-  for (int i = 0; i < p; ++i) {
-    if (codes[i] < 0 || codes[i] > 8) return false;
-    spec->code[i] = (signed char)codes[i];
-  }
-  int k = 0;
-  for (int i = 0; i < p; ++i)
-    for (int j = i; j < p; ++j) { spec->sa[k] = i; spec->sb[k] = j; ++k; }
-  for (int i = 0; i < p; ++i) { spec->sa[k] = i; spec->sb[k] = p; ++k; }
-  for (int i = 0; i < p; ++i) { spec->sa[k] = i; spec->sb[k] = kOneColumn; ++k; }
-  spec->sa[k] = p; spec->sb[k] = kOneColumn; ++k;
-  spec->sa[k] = p; spec->sb[k] = p; ++k;
-  spec->n_stats = k;
-  return true;
-}
-
-// The stencil quantities every term is made of, at interior tile point (r, c).
-struct PointFields {
-  float u, ux, uy, lap, bih;
-};
-
-__device__ __forceinline__ PointFields point_fields(const float* __restrict__ su,
-                                                    const float* __restrict__ sl, int TW,
-                                                    int r, int c, Stencil s) {
-  const int PW = TW + 4, LW = TW + 2;
-  const float* l = sl + (r + 1) * LW + (c + 1);
-  const float* p = su + (r + 2) * PW + (c + 2);
-  PointFields f;
-  f.u = p[0];
-  f.lap = l[0];
-  f.bih = (l[LW] - 2.0f * f.lap + l[-LW]) / s.dx2 + (l[1] - 2.0f * f.lap + l[-1]) / s.dy2;
-  f.ux = (p[PW] - p[-PW]) / s.two_dx;
-  f.uy = (p[1] - p[-1]) / s.two_dy;
-  return f;
-}
-
-// Term `code` at a point, float32 as pdx_torch's _term_fields computes it.
-__device__ __forceinline__ float term_value(int code, const PointFields& f) {
-  switch (code) {
-    case 0: return 1.0f;
-    case 1: return f.u;
-    case 2: return f.u * f.u;
-    case 3: return f.ux;
-    case 4: return f.uy;
-    case 5: return f.lap;
-    case 6: return f.bih;
-    case 7: return f.ux * f.ux + f.uy * f.uy;
-    default: return f.u * f.lap;
-  }
-}
-
-// The (column a, column b) pairs of the statistics this warp owns; a < 0
-// marks an empty slot.
-__device__ __forceinline__ void warp_slots(const TermSpec& spec, int* sa, int* sb) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 0; m < kSlots; ++m) {
-    const int k = warp + m * kWarps;
-    sa[m] = k < spec.n_stats ? spec.sa[k] : -2;
-    sb[m] = k < spec.n_stats ? spec.sb[k] : -2;
-  }
-}
-
-// Sum each owned statistic over the warp's lanes (fixed shuffle order) and
-// write it to the CTA's row; every statistic has exactly one owning warp.
-__device__ __forceinline__ void write_slots_row(const double* acc, int n_stats,
-                                                double* __restrict__ row) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 0; m < kSlots; ++m) {
-    double v = acc[m];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    const int k = warp + m * kWarps;
-    if (lane == 0 && k < n_stats) row[k] = v;
-  }
 }
 
 }  // namespace pdx

@@ -8,13 +8,17 @@ chip, and returns the ``gram_stats`` dict {G, b, sx, n, syy, sy} of the true
 library; kernel K2 (``pdx_torch/csrc/fused_gram_terms.cu``) does the same for
 any list of terms of the rich vocabulary ``RICH_TERM_NAMES``.
 
-Fields are computed in float32 from float32-cast inputs, as the TPU kernels
-do; sums are float64 in the kernels and in their plain versions
+Fields are computed in float32 from float32-rounded inputs, as the TPU
+kernels do (K2 and K4 read float64 input directly and round each value on
+load, which gives the value ``.to(torch.float32)`` gives); sums are float64
+in the kernels and in their plain versions
 :func:`fused_ks_gram_reference` and :func:`_terms_reference`, so the
 statistics come back as float64.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import Tensor
@@ -24,7 +28,7 @@ from pdx_torch.ops.linalg import gram_stats
 RICH_TERM_NAMES = ("one", "u", "u2", "ux", "uy", "lap", "bih", "gradsq", "u_lap")
 
 _MAX_TILE = 64  # widest tile side in points (unless one block is wider)
-_TERMS_MAX_TILE = 32  # K2 keeps p + 1 float32 fields of its tile in shared memory
+_TERMS_MAX_TILE = 50  # K2's tile side: a (tile + 4)^2 patch, double-buffered
 _TARGET_CTAS = 1024  # ~8 resident 256-thread CTAs on each of 132 SMs
 
 
@@ -105,6 +109,13 @@ def _f32(t: Tensor) -> Tensor:
     return t.to(torch.float32).contiguous()
 
 
+def _kernel_inputs(U: Tensor, Ut: Tensor) -> tuple[Tensor, Tensor, int]:
+    """K2/K4's inputs: U and Ut contiguous in one type, float64 if both are
+    (the kernels round it on load), else float32; and the f64 flag."""
+    dtype = U.dtype if U.dtype == Ut.dtype else torch.float32
+    return U.to(dtype).contiguous(), Ut.to(dtype).contiguous(), int(dtype == torch.float64)
+
+
 def _tile(n: int, unit: int, max_tile: int = _MAX_TILE) -> tuple[int, int]:
     """(tile, n_tiles) along one axis of n points: a tile is a whole number
     of ``unit``-point blocks, at most ``max_tile`` points unless one block
@@ -161,28 +172,35 @@ def _term_codes(names) -> tuple[str, ...]:
     return names
 
 
+@functools.cache
 def _codes_arg(names: tuple[str, ...]):
     """The term list as the C entry points take it: an int array of
-    indices into ``RICH_TERM_NAMES``."""
+    indices into ``RICH_TERM_NAMES`` (cached: the C side only reads it)."""
     import ctypes
 
     return (ctypes.c_int * len(names))(*(RICH_TERM_NAMES.index(n) for n in names))
+
+
+@functools.cache
+def _gram_index(p: int, device: torch.device) -> Tensor:
+    """(p, p) positions of the Gram entries in a K2/K4 row, kept on the
+    device so that unpacking a row copies nothing from the host."""
+    tri = torch.zeros((p, p), dtype=torch.long)
+    iu = torch.triu_indices(p, p)
+    tri[iu[0], iu[1]] = torch.arange(iu.shape[1])
+    return torch.maximum(tri, tri.T).to(device)
 
 
 def _terms_stats_from_row(out: Tensor, p: int, n: float) -> dict[str, Tensor]:
     """The p(p+1)/2 + 2p + 2 statistics of K2/K4 (Gram upper triangle
     row-major, b, sx, sy, syy: the order of pdx's ``_kernel_terms``) as a
     ``gram_stats`` dict."""
-    tri = torch.zeros((p, p), dtype=torch.long)
-    iu = torch.triu_indices(p, p)
-    tri[iu[0], iu[1]] = torch.arange(iu.shape[1])
-    tri = torch.maximum(tri, tri.T)
     ntri = p * (p + 1) // 2
     return {
-        "G": out[tri.to(out.device)],
+        "G": out[_gram_index(p, out.device)],
         "b": out[ntri : ntri + p],
         "sx": out[ntri + p : ntri + 2 * p],
-        "n": torch.tensor(n, dtype=out.dtype, device=out.device),
+        "n": torch.full((), n, dtype=out.dtype, device=out.device),
         "syy": out[ntri + 2 * p + 1],
         "sy": out[ntri + 2 * p],
     }
@@ -197,6 +215,20 @@ def _terms_reference(U: Tensor, Ut: Tensor, dx: float, dy: float, names) -> dict
     return gram_stats(X.to(torch.float64), y.to(torch.float64))
 
 
+@functools.cache
+def _terms_launch(T: int, H: int, W: int, f64: int, device: torch.device) -> tuple[int, ...]:
+    """K2's launch shape (TH, TW, frames_per_cta, n_tiles_x, n_tiles_y,
+    n_chunks), checked against the card's shared memory; cached, so that a
+    call spends no host time on it once the shape has been seen."""
+    from pdx_torch.ops.kernels._build import library
+
+    TH, ntx = _tile(H, 1, _TERMS_MAX_TILE)
+    TW, nty = _tile(W, 1, _TERMS_MAX_TILE)
+    _check_smem(library().pdx_fused_ks_gram_terms_smem_bytes(TH, TW, f64), device, "fused_ks_gram_terms")
+    fpc, ntz = _chunks(T, ntx * nty)
+    return TH, TW, fpc, ntx, nty, ntz
+
+
 def fused_ks_gram_terms(
     U: Tensor, Ut: Tensor, *, dx: float, dy: float, names=RICH_TERM_NAMES
 ) -> dict[str, Tensor]:
@@ -205,8 +237,8 @@ def fused_ks_gram_terms(
     order given.
 
     On the CPU this is :func:`_terms_reference`; on a CUDA tensor it
-    launches K2 and raises if the build or the launch fails. Returns float64
-    statistics, n = T * H * W.
+    launches K2 (on float64 input directly, else on float32) and raises if
+    the build or the launch fails. Returns float64 statistics, n = T * H * W.
     """
     names = _term_codes(names)
     _check_inputs(U, Ut)
@@ -217,17 +249,14 @@ def fused_ks_gram_terms(
     lib = library()
     T, H, W = U.shape
     p = len(names)
-    TH, ntx = _tile(H, 1, _TERMS_MAX_TILE)
-    TW, nty = _tile(W, 1, _TERMS_MAX_TILE)
-    _check_smem(lib.pdx_fused_ks_gram_terms_smem_bytes(TH, TW, p), U.device, "fused_ks_gram_terms")
-    fpc, ntz = _chunks(T, ntx * nty)
+    Uk, Utk, f64 = _kernel_inputs(U, Ut)
+    TH, TW, fpc, ntx, nty, ntz = _terms_launch(T, H, W, f64, U.device)
     n_stats = p * (p + 1) // 2 + 2 * p + 2
-    U32, Ut32 = _f32(U), _f32(Ut)
     partials = torch.empty((ntx * nty * ntz, n_stats), dtype=torch.float64, device=U.device)
     out = torch.empty(n_stats, dtype=torch.float64, device=U.device)
     with torch.cuda.device(U.device):
         rc = lib.pdx_fused_ks_gram_terms(
-            U32.data_ptr(), Ut32.data_ptr(), T, H, W, TH, TW, fpc, ntx, nty, ntz,
+            Uk.data_ptr(), Utk.data_ptr(), f64, T, H, W, TH, TW, fpc, ntx, nty, ntz,
             *_stencil_args(dx, dy), _codes_arg(names), p, partials.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )

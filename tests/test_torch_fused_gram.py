@@ -270,6 +270,48 @@ def test_tiles_cover_axis_in_whole_blocks(n, unit):
     assert tile <= max(tfg._MAX_TILE, unit)
 
 
+@pytest.mark.parametrize("n", [100, 30, 126, 3, 7, 257, 40, 41])
+def test_term_tiles_cover_axis(n):
+    """K2's tiles: balanced, at most _TERMS_MAX_TILE points, covering the axis."""
+    tile, n_tiles = tfg._tile(n, 1, tfg._TERMS_MAX_TILE)
+    assert tile <= tfg._TERMS_MAX_TILE
+    assert (n_tiles - 1) * tile < n <= n_tiles * tile
+
+
+@pytest.mark.parametrize("H,W,bx,by", [
+    (100, 100, 8, 8),  # the main path
+    (30, 126, 8, 8),  # ragged on both axes
+    (3, 5, 2, 3),  # frames smaller than the halo
+    (130, 257, 16, 5),  # several tiles per axis
+    (100, 70, 100, 1),  # one block spans the frame height
+    (300, 300, 8, 8),
+    (300, 300, 300, 300),  # too large for shared memory: the wrapper refuses it
+])
+def test_blockwise_plan_covers_frame(H, W, bx, by):
+    """K4's launch shape: G a power of two <= 32, at most 256 threads, whole
+    blocks, balanced tiles that cover the frame, the patch within its cap."""
+    kbx, kby, G, ntx, nty = tfb._blockwise_plan(H, W, bx, by)
+    nbx, nby = -(-H // bx), -(-W // by)
+    assert G & (G - 1) == 0 and 1 <= G <= 32
+    assert kbx * kby * G <= tfb._K4_THREADS
+    assert (ntx - 1) * kbx < nbx <= ntx * kbx and (nty - 1) * kby < nby <= nty * kby
+    if (kbx, kby) != (1, 1):
+        assert (kbx * bx + 4) * (kby * by + 4) <= tfb._K4_MAX_PATCH
+    if (H, W, bx, by) == (100, 100, 8, 8):  # the 13 x 13 blocks waste no tile row
+        assert ntx * kbx * nty * kby <= 13 * 14
+
+
+def test_kernel_inputs_round_like_torch():
+    """K2/K4 take float64 as it is only when both inputs are float64; a mixed
+    pair goes to float32, which is what the kernels' rounding on load gives."""
+    a64 = torch.from_numpy(np.random.default_rng(10).normal(size=(2, 3, 4)))
+    a32 = a64.to(torch.float32)
+    U, Ut, f64 = tfg._kernel_inputs(a64, a64)
+    assert f64 == 1 and U.dtype == Ut.dtype == torch.float64
+    U, Ut, f64 = tfg._kernel_inputs(a64, a32)
+    assert f64 == 0 and torch.equal(U, a32) and torch.equal(Ut, a32)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,blocks", [
     ((1999, 100, 100), (3, 8, 8)),  # the main path
@@ -298,6 +340,10 @@ def test_kernels_match_plain_on_card(cuda, shape, blocks):
     ((9, 130, 257), (4, 16, 5), RICH),  # several tiles per axis
     ((7, 3, 5), (2, 2, 3), ("u",)),  # p = 1, frames smaller than the halo
     ((5, 100, 70), (5, 100, 1), ("one", "u_lap")),  # one block spans the frame height
+    ((5, 3, 7), (2, 2, 3), RICH),  # 21-point tile: not a multiple of the mma's 4 samples
+    ((8, 30, 126), (3, 8, 8), RICH[:6]),  # p = 6 with `one`: X~ is exactly 8 columns
+    ((8, 30, 126), (3, 8, 8), ("u", "u2", "lap", "bih", "gradsq", "u_lap")),  # p = 6 without `one`
+    ((8, 30, 126), (3, 8, 8), RICH[1:8]),  # p = 7 without `one`: the first list with a second group
 ])
 def test_term_kernels_match_plain_on_card(cuda, shape, blocks, names):
     """K2 and K4 against their plain versions on the card, each entry within
@@ -331,3 +377,39 @@ def test_wrappers_count_launches_and_refuse_oversized_blocks(cuda):
         tfb.fused_blockwise_gram(U, Ut, dx=1.0, dy=1.0, block_x=300, block_y=300)
     with pytest.raises(ValueError, match="shared memory"):
         tfb.fused_blockwise_gram_terms(U, Ut, dx=1.0, dy=1.0, names=RICH, block_x=300, block_y=300)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,blocks,names", [
+    ((1999, 100, 100), (3, 8, 8), RICH),  # the main path's float64 input
+    ((8, 30, 126), (3, 8, 8), ADV),
+])
+def test_term_kernels_take_float64(cuda, shape, blocks, names):
+    """On float64 U and Ut, K2 and K4 round each value on load: the plain
+    versions agree within 1e-5 of each entry's scale and the float32 input's
+    launch gives the same bits."""
+    U, Ut = (torch.from_numpy(a).to(cuda) for a in _inputs(shape, 11, np.float64))
+    kw = dict(zip(("block_t", "block_x", "block_y"), blocks))
+    k2 = tfg.fused_ks_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names)
+    _compare_scaled(k2, tfg._terms_reference(U, Ut, 0.5, 0.5, names), 1e-5)
+    k4 = tfb.fused_blockwise_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names, **kw)
+    _compare_scaled(k4, tfb.fused_blockwise_gram_terms_reference(U, Ut, 0.5, 0.5, names=names, **kw), 1e-5)
+    U32, Ut32 = U.to(torch.float32), Ut.to(torch.float32)
+    k2_32 = tfg.fused_ks_gram_terms(U32, Ut32, dx=0.5, dy=0.5, names=names)
+    k4_32 = tfb.fused_blockwise_gram_terms(U32, Ut32, dx=0.5, dy=0.5, names=names, **kw)
+    for k in KEYS:
+        assert torch.equal(k2[k], k2_32[k]) and torch.equal(k4[k], k4_32[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dx,dy", [(0.3, 0.7), (0.123, 1.7)])
+def test_term_kernels_any_grid_spacing(cuda, dx, dy):
+    """Spacings whose squares and doubles are not powers of two, so that the
+    kernels' division by a constant is not a plain multiplication: K2 and K4
+    agree with the plain versions' division within 1e-5 of each entry's scale."""
+    U, Ut = (torch.from_numpy(a).to(cuda) for a in _inputs((8, 30, 126), 12))
+    k2 = tfg.fused_ks_gram_terms(U, Ut, dx=dx, dy=dy, names=RICH)
+    _compare_scaled(k2, tfg._terms_reference(U, Ut, dx, dy, RICH), 1e-5)
+    kw = dict(block_t=3, block_x=8, block_y=8)
+    k4 = tfb.fused_blockwise_gram_terms(U, Ut, dx=dx, dy=dy, names=RICH, **kw)
+    _compare_scaled(k4, tfb.fused_blockwise_gram_terms_reference(U, Ut, dx, dy, names=RICH, **kw), 1e-5)

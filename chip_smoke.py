@@ -17,10 +17,18 @@ Phases, each of which exits non-zero on failure:
    bitwise repeatable; median CUDA-event times of kernel and plain, and
    each kernel's bound (the larger of its bytes over 3.35 TB/s and its
    float64 operations over 67 TFLOP/s, the H100 SXM data sheet's FP64 rate
-   through the tensor cores). K2 and K4 are also checked and timed on the
+   through the tensor cores). All four are also checked and timed on the
    main path's float64 input (its bound counts float64 bytes), through the
-   wrapper as the path calls it; each kernel's registers a thread and
-   resident CTAs per SM at the main shape come from a C query
+   wrapper as the path calls it; at the main shape the bare launch (the C
+   entry point on preallocated buffers, no wrapper) is timed beside the
+   wrapper; for K1 and K3 the copy route (bulk, element-wise, or float64
+   rounded in flight) and the band of every shape and input type are
+   printed, the bare launch is timed on the bulk and on the element-wise
+   route, and K3 is also held to its plain version on float64 input with
+   64-row blocks, whose bands fit only when rounded in flight; K1 must be
+   faster than K2 with 5 terms and K3 than K4 (bare launches; the
+   wrappers' times are printed beside them); each kernel's registers
+   a thread and resident CTAs per SM at the main shape come from a C query
    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. the KS-2D benchmark's main paths, ``pipelines.ks2d_bench.run`` at the
    full default size (100x100, 2000 Euler steps, float64): solver auto,
@@ -134,21 +142,26 @@ def _bound(
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _print_occupancy(lib, kg, kb, card: str) -> None:
+def _print_occupancy(lib, kg, kb, dev, card: str) -> None:
     """Registers a thread and resident CTAs per SM of each kernel at the main
-    shape's launch (100 x 100 frames, 3 x 8 x 8 blocks)."""
+    shape's launch (100 x 100 frames, 3 x 8 x 8 blocks), both input types."""
     import ctypes
 
-    TH, TW = kg._tile(100, 1)[0], kg._tile(100, 1)[0]
-    BH, BW = kg._tile(100, 8)[0], kg._tile(100, 8)[0]
     KH, KW = kg._tile(100, 1, kg._TERMS_MAX_TILE)[0], kg._tile(100, 1, kg._TERMS_MAX_TILE)[0]
     kbx, kby, G, _, _ = kb._blockwise_plan(100, 100, 8, 8)
-    queries = {
-        "fused_ks_gram": lambda r, c: lib.pdx_fused_ks_gram_occupancy(TH, TW, r, c),
-        "fused_blockwise_gram": lambda r, c: lib.pdx_fused_blockwise_occupancy(BH, BW, 8, 8, r, c),
-    }
+    queries = {}
     for f64 in (0, 1):
         kind = "float64" if f64 else "float32"
+        _, TH, threads, *_ = kg._gram_launch(1999, 100, 100, f64, kg._ROUTE_BULK, dev)
+        _, kbr, G3, *_ = kb._blockwise_launch(1999, 100, 100, 3, 8, 8, f64, kg._ROUTE_BULK, dev)
+        for route in (kg._ROUTE_BULK, kg._ROUTE_ELEMENTWISE):
+            how = kg.ROUTE_NAMES[route]
+            queries[f"fused_ks_gram {kind} ({how}, bands of {TH} rows, {threads} threads)"] = (
+                lambda r, c, f64=f64, route=route, a=(TH, 100, threads): lib.pdx_fused_ks_gram_occupancy(
+                    *a, f64, route, r, c))
+            queries[f"fused_blockwise_gram {kind} ({how}, bands of {kbr} block-rows, {G3} threads a block)"] = (
+                lambda r, c, f64=f64, route=route, a=(100, 8, 8, kbr, G3): lib.pdx_fused_blockwise_occupancy(
+                    *a, f64, route, r, c))
         for p in (9, 5):  # two instances: X~ wider than 8 columns or not
             queries[f"fused_ks_gram_terms {kind} p={p}"] = (
                 lambda r, c, f64=f64, p=p: lib.pdx_fused_ks_gram_terms_occupancy(KH, KW, f64, p, r, c))
@@ -160,6 +173,70 @@ def _print_occupancy(lib, kg, kb, card: str) -> None:
         if rc != 0:
             raise RuntimeError(f"occupancy query of {name} failed with CUDA error {rc}")
         print(f"[occupancy] {name}: {regs.value} registers a thread, {ctas.value} resident CTAs per SM ({card})")
+
+
+def _band_text(name: str, kg, kb, U, Ut, blocks) -> str:
+    """How K1 or K3 stages this input: the copy route and the band ("" for K2/K4)."""
+    T, H, W = U.shape
+    f64 = int(U.dtype == Ut.dtype and U.element_size() == 8)
+    aligned = kg._band_route(W, U.element_size(), U.data_ptr(), Ut.data_ptr())
+    if name == "fused_ks_gram":
+        route, TH, threads, fpc, n_bands, n_chunks = kg._gram_launch(T, H, W, f64, aligned, U.device)
+        return (f", {kg.ROUTE_NAMES[route]}, {n_bands} band(s) of {TH} rows x {n_chunks} chunks of {fpc} frames, "
+                f"{threads} threads")
+    if name == "fused_blockwise_gram":
+        route, kbr, G, tpc, n_bands, n_chunks = kb._blockwise_launch(T, H, W, *blocks, f64, aligned, U.device)
+        return (f", {kg.ROUTE_NAMES[route]}, {n_bands} band(s) of {kbr} block-rows x {n_chunks} chunks of {tpc} "
+                f"temporal blocks, {G} threads a block")
+    return ""
+
+
+def _bare_launch(name: str, lib, kg, kb, U, Ut, names, blocks, route=None):
+    """The kernel's C entry point on preallocated buffers, as the wrapper
+    calls it for these 16-byte aligned U and Ut (both float32 or both
+    float64) at dx = dy = 0.5: a function that launches once and raises on a
+    CUDA error. ``route``: for K1 and K3, the copy route to take at the
+    plan's launch shape instead of the plan's own."""
+    import torch
+
+    T, H, W = U.shape
+    f64 = int(U.element_size() == 8)
+    dev, stream = U.device, torch.cuda.current_stream().cuda_stream
+    stencil, p = kg._stencil_args(0.5, 0.5), len(names)
+    n_stats = 14 if name in ("fused_ks_gram", "fused_blockwise_gram") else p * (p + 1) // 2 + 2 * p + 2
+    out = torch.empty(n_stats, dtype=torch.float64, device=dev)
+    ptrs = (U.data_ptr(), Ut.data_ptr())
+    if name == "fused_ks_gram":
+        planned, TH, threads, fpc, nb, nc = kg._gram_launch(T, H, W, f64, kg._ROUTE_BULK, dev)
+        route = planned if route is None else route
+        part = torch.empty((nb * nc, 14), dtype=torch.float64, device=dev)
+        call = lambda: lib.pdx_fused_ks_gram(  # noqa: E731
+            *ptrs, f64, route, T, H, W, TH, threads, fpc, nb, nc, *stencil, part.data_ptr(), out.data_ptr(), stream)
+    elif name == "fused_blockwise_gram":
+        planned, kbr, G, tpc, nb, nc = kb._blockwise_launch(T, H, W, *blocks, f64, kg._ROUTE_BULK, dev)
+        route = planned if route is None else route
+        part = torch.empty((nb * nc, 14), dtype=torch.float64, device=dev)
+        call = lambda: lib.pdx_fused_blockwise_gram(  # noqa: E731
+            *ptrs, f64, route, T, H, W, *blocks, kbr, G, tpc, nb, nc, *stencil, part.data_ptr(), out.data_ptr(), stream)
+    elif name == "fused_ks_gram_terms":
+        TH, TW, fpc, ntx, nty, ntz = kg._terms_launch(T, H, W, f64, dev)
+        part = torch.empty((ntx * nty * ntz, n_stats), dtype=torch.float64, device=dev)
+        call = lambda: lib.pdx_fused_ks_gram_terms(  # noqa: E731
+            *ptrs, f64, T, H, W, TH, TW, fpc, ntx, nty, ntz, *stencil, kg._codes_arg(names), p,
+            part.data_ptr(), out.data_ptr(), stream)
+    else:
+        kbx, kby, G, tpc, ntx, nty, ntz = kb._blockwise_terms_launch(T, H, W, *blocks, f64, dev)
+        part = torch.empty((ntx * nty * ntz, n_stats), dtype=torch.float64, device=dev)
+        call = lambda: lib.pdx_fused_blockwise_gram_terms(  # noqa: E731
+            *ptrs, f64, T, H, W, *blocks, kbx, kby, G, tpc, ntx, nty, ntz, *stencil, kg._codes_arg(names), p,
+            part.data_ptr(), out.data_ptr(), stream)
+
+    def launch():
+        rc = call()
+        if rc != 0:
+            raise RuntimeError(f"{name}: bare launch failed with CUDA error {rc}")
+
+    return launch
 
 
 def main() -> int:
@@ -185,10 +262,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] {time.perf_counter() - t0:.2f} s (sources {_build.source_hash()})")
-    _print_occupancy(_build.library(), kg, kb, card)
+    _print_occupancy(_build.library(), kg, kb, dev, card)
 
     # 2. kernels vs plain versions on the card
     kw3 = dict(block_t=3, block_x=8, block_y=8)
+    blocks = (3, 8, 8)
+    lib = _build.library()
+    main_ms = {}  # (kernel, number of terms) -> (wrapper, bare launch) times at the main shape, float32
     specs = {
         "fused_ks_gram": dict(
             wrapper=lambda U, Ut, names: kg.fused_ks_gram(U, Ut, dx=0.5, dy=0.5),
@@ -240,19 +320,22 @@ def main() -> int:
                 ms = _time_ms(lambda: s["wrapper"](U, Ut, names))
                 plain_ms = _time_ms(lambda: s["plain"](U, Ut, names))
                 bound_ms, bound_by = _bound(s["blockwise"], shape, names)
-                if main_shape and "ms" not in r:  # the kernels line times each kernel's first main list
-                    r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                bare = ""
+                if main_shape:
+                    bare_ms = _time_ms(_bare_launch(name, lib, kg, kb, U, Ut, names, blocks))
+                    bare = f" (bare launch {bare_ms:.4f} ms, at {100 * bound_ms / bare_ms:.1f}%)"
+                    if "ms" not in r:  # the kernels line times each kernel's first main list
+                        r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    main_ms[name, len(names)] = (ms, bare_ms)
                 print(
                     f"[kernel] {label}: max|err| {err:.3e} (at most {rel:.1e} of an entry's scale, limit {RTOL:.0e}), "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-                    f"kernel at {100 * bound_ms / ms:.1f}% of it) ({card})"
+                    f"kernel {ms:.4f} ms{bare}, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                    f"kernel at {100 * bound_ms / ms:.1f}% of it){_band_text(name, kg, kb, U, Ut, blocks)} ({card})"
                 )
-        if main_shape:  # K2/K4 on the path's own float64 input, through the wrapper
+        if main_shape:  # every kernel on the path's own float64 input, through the wrapper
             U64 = torch.from_numpy(rng.normal(size=shape)).to(dev)
             Ut64 = torch.from_numpy(rng.normal(size=shape)).to(dev)
             for name, s in specs.items():
-                if s["counter"] not in (kg.fused_ks_gram_terms, kb.fused_blockwise_gram_terms):
-                    continue
                 for names in s["main"]:
                     label = f"{name} {shape} p={len(names)} float64"
                     got, again = s["wrapper"](U64, Ut64, names), s["wrapper"](U64, Ut64, names)
@@ -264,9 +347,35 @@ def main() -> int:
                     print(
                         f"[kernel] {label}: max|err| {err:.3e} (at most {rel:.1e} of an entry's scale), "
                         f"wrapper {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-                        f"at {100 * bound_ms / ms:.1f}% of it) ({card})"
+                        f"at {100 * bound_ms / ms:.1f}% of it){_band_text(name, kg, kb, U64, Ut64, blocks)} ({card})"
                     )
+            # K3 with blocks whose band of raw float64 does not fit shared memory
+            tall = dict(block_t=3, block_x=64, block_y=8)
+            label = f"fused_blockwise_gram {shape} float64, blocks (3, 64, 8)"
+            got = kb.fused_blockwise_gram(U64, Ut64, dx=0.5, dy=0.5, **tall)
+            err, rel = _check_stats(label, got, kb.fused_blockwise_gram_reference(U64, Ut64, 0.5, 0.5, **tall))
+            ms = _time_ms(lambda: kb.fused_blockwise_gram(U64, Ut64, dx=0.5, dy=0.5, **tall))
+            print(
+                f"[kernel] {label}: max|err| {err:.3e} (at most {rel:.1e} of an entry's scale), wrapper {ms:.4f} ms"
+                f"{_band_text('fused_blockwise_gram', kg, kb, U64, Ut64, (3, 64, 8))} ({card})"
+            )
+            # bulk copies against element-wise copies in the same band layout, bare launches
+            for name in ("fused_ks_gram", "fused_blockwise_gram"):
+                for kind, pair in (("float32", (U, Ut)), ("float64", (U64, Ut64))):
+                    t = [_time_ms(_bare_launch(name, lib, kg, kb, *pair, TRUE, blocks, route=route))
+                         for route in (kg._ROUTE_BULK, kg._ROUTE_ELEMENTWISE)]
+                    print(f"[route] {name} {shape} {kind}: bare launch with bulk copies {t[0]:.4f} ms, "
+                          f"with element-wise copies {t[1]:.4f} ms ({card})")
             del U64, Ut64
+            # each true-library kernel computes a subset of its term-list sibling's terms
+            for small, big, p in (("fused_ks_gram", "fused_ks_gram_terms", 5),
+                                  ("fused_blockwise_gram", "fused_blockwise_gram_terms", 9)):
+                (a, a_bare), (b, b_bare) = main_ms[small, 3], main_ms[big, p]
+                print(f"[kernel] {small} {a:.4f} ms (bare launch {a_bare:.4f}) vs {big} at p={p} {b:.4f} ms "
+                      f"(bare launch {b_bare:.4f}) ({card})")
+                if not a_bare < b_bare:
+                    raise AssertionError(
+                        f"{small} (bare launch {a_bare:.4f} ms) is not faster than {big} at p={p} ({b_bare:.4f} ms)")
         del U, Ut
 
     # 3. the main paths at full size; counters set to 0 before each run

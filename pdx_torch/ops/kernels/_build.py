@@ -30,12 +30,12 @@ NVCC_FLAGS = (
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "pdx_fused_ks_gram": (_I, [_P, _P] + [_I] * 9 + [_F] * 4 + [_P, _P, _P]),
-    "pdx_fused_ks_gram_smem_bytes": (_LL, [_I, _I]),
-    "pdx_fused_ks_gram_occupancy": (_I, [_I, _I, _PI, _PI]),
-    "pdx_fused_blockwise_gram": (_I, [_P, _P] + [_I] * 12 + [_F] * 4 + [_P, _P, _P]),
-    "pdx_fused_blockwise_smem_bytes": (_LL, [_I, _I, _I, _I]),
-    "pdx_fused_blockwise_occupancy": (_I, [_I] * 4 + [_PI, _PI]),
+    "pdx_fused_ks_gram": (_I, [_P, _P] + [_I] * 10 + [_F] * 4 + [_P, _P, _P]),
+    "pdx_band_smem_bytes": (_LL, [_I] * 3),
+    "pdx_fused_ks_gram_occupancy": (_I, [_I] * 5 + [_PI, _PI]),
+    "pdx_fused_blockwise_gram": (_I, [_P, _P] + [_I] * 13 + [_F] * 4 + [_P, _P, _P]),
+    "pdx_fused_blockwise_smem_bytes": (_LL, [_I] * 6),
+    "pdx_fused_blockwise_occupancy": (_I, [_I] * 7 + [_PI, _PI]),
     "pdx_fused_ks_gram_terms": (_I, [_P, _P, _I] + [_I] * 9 + [_F] * 4 + [_P, _I, _P, _P, _P]),
     "pdx_fused_ks_gram_terms_smem_bytes": (_LL, [_I, _I, _I]),
     "pdx_fused_ks_gram_terms_occupancy": (_I, [_I] * 4 + [_PI, _PI]),

@@ -10,8 +10,8 @@ materialising the term stack or the (n_blocks, 3) design matrix; kernel K4
 terms of ``RICH_TERM_NAMES``. Ragged tails on every axis are means over their
 valid cells, as in :func:`pdx_torch.library.blockwise.build_blockwise_dataset`.
 
-Fields are float32 from float32-rounded inputs (K4 rounds float64 input on
-load); block sums, means and Gram sums
+Fields are float32 from float32-rounded inputs (the kernels round float64
+input on load); block sums, means and Gram sums
 are float64 in the kernels and in :func:`fused_blockwise_gram_reference` /
 :func:`fused_blockwise_gram_terms_reference`.
 """
@@ -25,19 +25,26 @@ from torch import Tensor
 
 from pdx_torch.library.blockwise import build_blockwise_dataset
 from pdx_torch.ops.kernels.fused_gram import (
+    _BAND_MAX_THREADS,
+    _ROUTE_ROUNDED,
+    _SMEM_PER_CTA,
+    _SMEM_PER_SM,
+    _band_route,
+    _band_smem_bytes,
     _check_inputs,
     _check_smem,
     _chunks,
     _codes_arg,
-    _f32,
     _kernel_inputs,
+    _launch_device,
+    _long_chunks,
+    _rounded_if_too_large,
     _ks_terms_2d,
     _stats_from_row,
     _stencil_args,
     _term_codes,
     _term_fields,
     _terms_stats_from_row,
-    _tile,
 )
 from pdx_torch.ops.linalg import gram_stats
 
@@ -63,6 +70,88 @@ def _check_blocks(block_t: int, block_x: int, block_y: int) -> tuple[int, int, i
     return bt, bx, by
 
 
+def _group_threads(bx: int, by: int) -> int:
+    """Threads that share a spatial block in K3 and K4: a power of two, at
+    most 32, about 8 points each."""
+    return 1 << min(5, max(0, (bx * by // 8).bit_length() - 1))
+
+
+def _blockwise_smem_bytes(W: int, bx: int, by: int, kb: int, G: int, itemsize: int) -> int:
+    """Shared memory of a K3 CTA: the band's layout and the 14 float64 sums
+    of each of its thread groups."""
+    threads = -(-kb * -(-W // by) * G // 32) * 32
+    return _band_smem_bytes(kb * bx, W, itemsize, threads // G * 14 * 8)
+
+
+def _blockwise_band_plan(H: int, W: int, bx: int, by: int, itemsize: int) -> tuple[int, int, int, int]:
+    """K3's launch shape: (kb, G, n_bands, threads). A band is kb whole
+    block-rows at full frame width; G threads (a power of two, halved until
+    one block-row's groups fit a CTA) share a spatial block, so a CTA takes
+    kb * nby * G threads rounded up to a warp. kb is the largest of which
+    two CTAs stay resident on an SM, so that one's copies and barriers hide
+    behind the other's work: by shared memory, and by registers, which the
+    kernel's launch bound caps so that ``_BAND_MAX_THREADS`` threads fit,
+    in one CTA or two. Where not even one block-row allows two, the largest
+    that fits; then the bands are balanced."""
+    nbx, nby = -(-H // bx), -(-W // by)
+    G = _group_threads(bx, by)
+    while G > 1 and nby * G > _BAND_MAX_THREADS:
+        G //= 2
+
+    def threads(kb: int) -> int:
+        return -(-kb * nby * G // 32) * 32
+
+    smem = {kb: _blockwise_smem_bytes(W, bx, by, kb, G, itemsize) for kb in range(1, nbx + 1)}
+    fit = [kb for kb in smem if threads(kb) <= _BAND_MAX_THREADS and smem[kb] <= _SMEM_PER_CTA]
+    if not fit:
+        raise ValueError(
+            f"fused_blockwise_gram with blocks ({bx}, {by}) on a {H} x {W} frame: a band of one block-row "
+            f"needs {nby * G} threads (at most {_BAND_MAX_THREADS}) and {smem[1]} B of shared memory per CTA "
+            f"(at most {_SMEM_PER_CTA})"
+        )
+    two = [k for k in fit if 2 * threads(k) <= _BAND_MAX_THREADS and 2 * (smem[k] + 1024) <= _SMEM_PER_SM]
+    kb = max(two or fit)
+    n_bands = -(-nbx // kb)
+    kb = -(-nbx // n_bands)
+    return kb, G, n_bands, threads(kb)
+
+
+def _blockwise_route_plan(H: int, W: int, bx: int, by: int, itemsize: int, route: int) -> tuple[int, ...]:
+    """K3's (route, kb, G, n_bands, threads) for input of ``itemsize`` bytes
+    whose alignment allows ``route``."""
+    return _rounded_if_too_large(
+        lambda staged: _blockwise_band_plan(H, W, bx, by, staged), itemsize, route
+    )
+
+
+@functools.cache
+def _blockwise_launch(
+    T: int, H: int, W: int, bt: int, bx: int, by: int, f64: int, route: int, device: torch.device
+) -> tuple[int, ...]:
+    """K3's launch shape (route, kb, G, tblocks_per_cta, n_bands, n_chunks)
+    for input that ``_band_route`` gives ``route``, checked against the
+    card's shared memory; cached, so that a call spends no host time on it
+    once the shape has been seen."""
+    import ctypes
+
+    from pdx_torch.ops.kernels._build import library
+
+    lib = library()
+    route, kb, G, n_bands, _ = _blockwise_route_plan(H, W, bx, by, 8 if f64 else 4, route)
+    staged64 = int(f64 and route != _ROUTE_ROUNDED)
+    smem = _blockwise_smem_bytes(W, bx, by, kb, G, 8 if staged64 else 4)
+    if smem != lib.pdx_fused_blockwise_smem_bytes(W, bx, by, kb, G, staged64):
+        raise RuntimeError("fused_blockwise_gram: the planned shared memory differs from the kernel's layout")
+    _check_smem(smem, device, f"fused_blockwise_gram with blocks ({bt}, {bx}, {by})")
+    regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.pdx_fused_blockwise_occupancy(W, bx, by, kb, G, f64, route, ctypes.byref(regs), ctypes.byref(ctas))
+    if rc != 0 or ctas.value < 1:
+        raise RuntimeError(f"fused_blockwise_gram: no CTA of this launch shape fits an SM (CUDA error {rc})")
+    slots = torch.cuda.get_device_properties(device).multi_processor_count * ctas.value
+    tpc, n_chunks = _long_chunks(-(-T // bt), n_bands, slots)
+    return route, kb, G, tpc, n_bands, n_chunks
+
+
 def fused_blockwise_gram(
     U: Tensor,
     Ut: Tensor,
@@ -76,9 +165,9 @@ def fused_blockwise_gram(
     """Streaming blockwise Gram statistics for [lap, bih, gradsq].
 
     On the CPU this is :func:`fused_blockwise_gram_reference`; on a CUDA
-    tensor it launches K3 and raises if the block sizes do not fit the card
-    or the build or the launch fails. Returns float64 statistics with
-    n = nbt * nbx * nby.
+    tensor it launches K3 (on float64 input directly, else on float32) and
+    raises if a band of one block-row does not fit the card or the build or
+    the launch fails. Returns float64 statistics with n = nbt * nbx * nby.
     """
     bt, bx, by = _check_blocks(block_t, block_x, block_y)
     _check_inputs(U, Ut)
@@ -90,27 +179,21 @@ def fused_blockwise_gram(
 
     lib = library()
     T, H, W = U.shape
-    TH, ntx = _tile(H, bx)
-    TW, nty = _tile(W, by)
-    _check_smem(
-        lib.pdx_fused_blockwise_smem_bytes(TH, TW, bx, by), U.device,
-        f"fused_blockwise_gram with blocks ({bt}, {bx}, {by})",
-    )
-    nbt = -(-T // bt)
-    tpc, ntz = _chunks(nbt, ntx * nty)
-    U32, Ut32 = _f32(U), _f32(Ut)
-    partials = torch.empty((ntx * nty * ntz, 14), dtype=torch.float64, device=U.device)
-    out = torch.empty(14, dtype=torch.float64, device=U.device)
-    with torch.cuda.device(U.device):
+    Uk, Utk, f64 = _kernel_inputs(U, Ut)
+    aligned = _band_route(W, Uk.element_size(), Uk.data_ptr(), Utk.data_ptr())
+    route, kb, G, tpc, n_bands, n_chunks = _blockwise_launch(T, H, W, bt, bx, by, f64, aligned, U.device)
+    rows = torch.empty((n_bands * n_chunks + 1, 14), dtype=torch.float64, device=U.device)
+    out = rows[0]  # the statistics; the CTAs' partial rows follow
+    with _launch_device(U.device):
         rc = lib.pdx_fused_blockwise_gram(
-            U32.data_ptr(), Ut32.data_ptr(), T, H, W, bt, bx, by, TH, TW, tpc,
-            ntx, nty, ntz, *_stencil_args(dx, dy), partials.data_ptr(),
+            Uk.data_ptr(), Utk.data_ptr(), f64, route, T, H, W, bt, bx, by, kb, G, tpc,
+            n_bands, n_chunks, *_stencil_args(dx, dy), rows[1:].data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_blockwise_gram: CUDA launch failed with error {rc}")
     fused_blockwise_gram.launches += 1
-    n_blocks = nbt * -(-H // bx) * -(-W // by)
+    n_blocks = -(-T // bt) * -(-H // bx) * -(-W // by)
     return _stats_from_row(out, float(n_blocks))
 
 
@@ -129,7 +212,7 @@ def _blockwise_plan(H: int, W: int, bx: int, by: int) -> tuple[int, int, int, in
     least: the share of block slots that lie in the frame, times the share
     of the rounded-up warps' threads that own a block, times the patch's
     interior share (its 2-cell halo is staged but yields no sample)."""
-    G = 1 << min(5, max(0, (bx * by // 8).bit_length() - 1))
+    G = _group_threads(bx, by)
     per_cta = max(1, _K4_THREADS // G)
     nbx, nby = -(-H // bx), -(-W // by)
 

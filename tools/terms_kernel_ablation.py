@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where K2 and K4 spend their time on the card: time each kernel with parts removed.
+"""Where K1-K4 spend their time on the card: time each kernel with parts removed.
 
     python tools/terms_kernel_ablation.py            # on a machine with a CUDA card and nvcc
+    python tools/terms_kernel_ablation.py --sweep    # K1/K3 at other launch shapes instead
 
 Each variant is the kernel's source with one or more statements replaced
 (the replacements are below; a variant fails loudly if its statement is no
 longer in the source). Every variant is compiled by nvcc (sm_90a, one
 process per variant, in parallel) into ``build/ablation/`` and timed
 through its C entry point at the main path's (1999, 100, 100) float32
-input, 3 x 8 x 8 blocks for K4: CUDA-event median of 15 launches after one
-warm-up. A variant without a part computes wrong statistics; only its time
+input, 3 x 8 x 8 blocks for K3 and K4: CUDA-event median of 15 launches
+after one warm-up. A variant without a part computes wrong statistics; only its time
 is of interest. The difference between the full kernel and a variant is the
-time that part costs where it does not overlap the rest.
+time that part costs where it does not overlap the rest. ``--sweep`` times
+the unchanged K1 and K3 (float32 and float64 input) on every copy route the
+input allows, at band heights and thread counts other than the wrappers'
+plans.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ sys.path.insert(0, str(ROOT))
 
 CSRC = ROOT / "pdx_torch" / "csrc"
 OUT = ROOT / "build" / "ablation"
+K1, K3 = "fused_gram.cu", "fused_blockwise.cu"
 K2, K4 = "fused_gram_terms.cu", "fused_blockwise_terms.cu"
 ADV = ("lap", "bih", "gradsq", "ux", "uy")
 
@@ -50,7 +55,34 @@ K4_BLOCK_END = [(
     "const bool block_done = (++nf == bt || !more) && T < 0;",
 )]
 
+BAND_RING = [("band_laplacian(su, th, W, d, sl);", "")]
+# a wait can go only together with the copies it waits for: a stage's
+# barrier must not be armed again before its last copy has been waited for
+BAND_NO_WAIT = [("mbar_wait(bar + b, parity);", "")]
+BAND_LOADS = BAND_NO_WAIT + [
+    ("if (more) pipe.issue(U + (t + 1) * frame, Ut + (t + 1) * frame, cur ^ 1);", ""),
+]
+K1_POINTS = [("for_my_cells(n_strips, W, [&](int q, int c) {", "for_my_cells(0, W, [&](int q, int c) {")]
+K1_STATS = [(  # one conversion and one add a sample keep the stencil alive
+    "accumulate(acc, lap, bih, gsq, to_f32(ut[i]));",
+    "acc[0] += (double)(lap + bih + gsq + to_f32(ut[i]));",
+)]
+K3_POINTS = K4_POINTS + [("band_strip_terms(su, sl, W, rx0, rx0 + vbx,", "band_strip_terms(su, sl, W, rx0, rx0,")]
+K3_BLOCK_END = [("if (++nf == bt || t + 1 == t_end) {", "if ((++nf == bt || t + 1 == t_end) && T < 0) {")]
+
 VARIANTS = {
+    "K1": (K1, 3, []),
+    "K1, no copies after the first frame (and no waits)": (K1, 3, BAND_LOADS),
+    "K1, no statistics (one add a sample)": (K1, 3, K1_STATS),
+    "K1, no points (frame pipeline and ring only)": (K1, 3, K1_POINTS),
+    "K1, no ring": (K1, 3, BAND_RING),
+    "K1, frame pipeline only": (K1, 3, K1_POINTS + BAND_RING),
+    "K3": (K3, 3, []),
+    "K3, no copies after the first frame (and no waits)": (K3, 3, BAND_LOADS),
+    "K3, no block-end (reductions, means, statistics)": (K3, 3, K3_BLOCK_END),
+    "K3, no point loop": (K3, 3, K3_POINTS),
+    "K3, no ring": (K3, 3, BAND_RING),
+    "K3, frame pipeline only": (K3, 3, K3_POINTS + BAND_RING + K3_BLOCK_END),
     "K2 p=9": (K2, 9, []),
     "K2 p=9, no Gram (mma and its loads)": (K2, 9, K2_GRAM),
     "K2 p=5": (K2, 5, []),
@@ -118,7 +150,6 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    libs = _build()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     T, H, W = shape = (1999, 100, 100)
@@ -139,11 +170,93 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    for name, (source, p, _) in VARIANTS.items():
-        lib = ctypes.CDLL(str(libs[name]))
+    def bind(lib):
         for fn, (restype, argtypes) in _SIGNATURES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
+        return lib
+
+    def band_launch(lib, source, Uk, Utk, f64, TH_or_kb, threads=None, route=kg._ROUTE_BULK):
+        """(launch, registers, CTAs per SM, text) of K1 at bands of TH rows and
+        `threads` threads, or of K3 at bands of kb block-rows, frames staged
+        by `route`."""
+        regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        out = torch.empty(14, dtype=torch.float64, device=dev)
+        if source == K1:
+            TH, n_bands = TH_or_kb, -(-H // TH_or_kb)
+            rc = lib.pdx_fused_ks_gram_occupancy(TH, W, threads, f64, route, ctypes.byref(regs), ctypes.byref(ctas))
+            fpc, n_chunks = kg._long_chunks(T, n_bands, n_sm * max(1, ctas.value))
+            part = torch.empty((n_bands * n_chunks, 14), dtype=torch.float64, device=dev)
+
+            def launch():
+                return lib.pdx_fused_ks_gram(
+                    Uk.data_ptr(), Utk.data_ptr(), f64, route, T, H, W, TH, threads, fpc, n_bands, n_chunks,
+                    *stencil, part.data_ptr(), out.data_ptr(), stream,
+                )
+            text = f"{kg.ROUTE_NAMES[route]}, bands of {TH} rows, {threads} threads, {n_bands} x {n_chunks} CTAs of {fpc} frames"
+        else:
+            kbr, G = TH_or_kb, kb._group_threads(8, 8)
+            n_bands = -(-(-(-H // 8)) // kbr)
+            rc = lib.pdx_fused_blockwise_occupancy(
+                W, 8, 8, kbr, G, f64, route, ctypes.byref(regs), ctypes.byref(ctas))
+            tpc, n_chunks = kg._long_chunks(-(-T // 3), n_bands, n_sm * max(1, ctas.value))
+            part = torch.empty((n_bands * n_chunks, 14), dtype=torch.float64, device=dev)
+
+            def launch():
+                return lib.pdx_fused_blockwise_gram(
+                    Uk.data_ptr(), Utk.data_ptr(), f64, route, T, H, W, 3, 8, 8, kbr, G, tpc, n_bands,
+                    n_chunks, *stencil, part.data_ptr(), out.data_ptr(), stream,
+                )
+            text = (f"{kg.ROUTE_NAMES[route]}, bands of {kbr} block-rows, {-(-kbr * -(-W // 8) * G // 32) * 32} threads, "
+                    f"{n_bands} x {n_chunks} CTAs of {tpc} temporal blocks")
+        if rc != 0:
+            raise SystemExit(f"occupancy query failed with CUDA error {rc}")
+        return launch, regs.value, ctas.value, text
+
+    def report(label, launch, regs, ctas, strict=True):
+        rc = launch()
+        torch.cuda.synchronize()
+        if rc != 0 and strict:
+            raise SystemExit(f"{label}: launch failed with CUDA error {rc}")
+        if rc != 0:  # a sweep may ask for more threads than the registers allow
+            print(f"[ablation] {label}: launch refused with CUDA error {rc} ({card})")
+            return
+        print(f"[ablation] {label}: {median_ms(launch):.4f} ms ({regs} registers, {ctas} CTAs per SM) ({card})")
+
+    if "--sweep" in sys.argv[1:]:
+        from pdx_torch.ops.kernels._build import library
+
+        lib = library()
+        U64, Ut64 = U.double(), Ut.double()
+        limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+        for f64, (Uk, Utk) in enumerate([(U, Ut), (U64, Ut64)]):
+            kind = "float64" if f64 else "float32"
+            for route in (kg._ROUTE_BULK, kg._ROUTE_ELEMENTWISE) + ((kg._ROUTE_ROUNDED,) if f64 else ()):
+                staged64 = int(f64 and route != kg._ROUTE_ROUNDED)
+                for TH in (100, 50, 25):
+                    for threads in (256, 512, 768) if route == kg._ROUTE_BULK else (512,):
+                        if lib.pdx_band_smem_bytes(TH, W, staged64) <= limit:
+                            launch, regs, ctas, text = band_launch(lib, K1, Uk, Utk, f64, TH, threads, route)
+                            report(f"K1 {kind}, {text}", launch, regs, ctas, strict=False)
+                for kbr in (1, 2, 3, 5, 7):
+                    if lib.pdx_fused_blockwise_smem_bytes(W, 8, 8, kbr, kb._group_threads(8, 8), staged64) <= limit:
+                        launch, regs, ctas, text = band_launch(lib, K3, Uk, Utk, f64, kbr, None, route)
+                        report(f"K3 {kind}, {text}", launch, regs, ctas, strict=False)
+        return 0
+
+    libs = _build()
+    for name, (source, p, _) in VARIANTS.items():
+        lib = bind(ctypes.CDLL(str(libs[name])))
+        if source in (K1, K3):
+            if source == K1:
+                _, TH, threads, *_ = kg._gram_launch(T, H, W, 0, kg._ROUTE_BULK, dev)
+                launch, regs, ctas, _ = band_launch(lib, K1, U, Ut, 0, TH, threads)
+            else:
+                _, kbr, *_ = kb._blockwise_launch(T, H, W, 3, 8, 8, 0, kg._ROUTE_BULK, dev)
+                launch, regs, ctas, _ = band_launch(lib, K3, U, Ut, 0, kbr)
+            report(name, launch, regs, ctas)
+            continue
         names = kg.RICH_TERM_NAMES if p == 9 else ADV
         codes = kg._codes_arg(names)
         n_stats = p * (p + 1) // 2 + 2 * p + 2
@@ -172,12 +285,7 @@ def main() -> int:
                     *stencil, codes, p, part.data_ptr(), out.data_ptr(), stream,
                 )
 
-        rc = launch()
-        torch.cuda.synchronize()
-        if rc != 0:
-            raise SystemExit(f"{name}: launch failed with CUDA error {rc}")
-        print(f"[ablation] {name}: {median_ms(launch):.4f} ms ({regs.value} registers, "
-              f"{ctas.value} CTAs per SM) ({card})")
+        report(name, launch, regs.value, ctas.value)
     return 0
 
 

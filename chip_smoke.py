@@ -38,10 +38,24 @@ Phases, each of which exits non-zero on failure:
    is set to 0 just before each run and read just after; the run's kernel
    must have moved. Gates: worst ground-truth error < 1% (true library) or
    < 2% (rich / advection), finite coefficients and rollout; the perturbed
-   run is gated on finite coefficients and its launch only;
+   run is gated on finite coefficients and its launch only. Then, at the
+   same size, ten configurations of the dataset / regression branch (no
+   kernel of their own: matrix products, FFTs, QR and solves): the single
+   fit, the batched grid on blockwise rows, the weak form (Fourier columns;
+   rich library by stencils; motion-corrected on jittered noisy frames),
+   Huber IRLS, the robust pipeline (trim, 30 bootstrap members, signs), the
+   restandardized ensemble, the float32 QR grid and the u_t advection
+   correction. Gates: finite coefficients of the right count for all; worst
+   ground-truth error < 1% for the clean true-library fits, < 2% for the
+   clean rich float32 QR grid, < 0.01% with decoys < 1e-4 for the rich weak
+   form by stencils; the perturbed ones print their error only. The batched
+   QR grid, one robust fit and the weak-form build are also timed on their
+   own (host clock ending in a synchronize, warm, median of 5);
 4. the card against the CPU at a small size (32x32, 0.2 s): coefficients
    within rtol 1e-6 (and, for the rich library only, 1e-6 of max|coef|,
-   for decoys the CPU leaves at ~1e-10 where the card gives 0).
+   for decoys the CPU leaves at ~1e-10 where the card gives 0); the looser
+   limits of the dataset / regression branch stand beside its table below;
+   the spectral stepper at 100x100 within 1e-9 of max|u|.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero.
@@ -64,6 +78,36 @@ RICH = ("one", "u", "u2", "ux", "uy", "lap", "bih", "gradsq", "u_lap")
 NO_ADV = tuple(n for n in RICH if n not in ("ux", "uy"))
 ADV = ("lap", "bih", "gradsq", "ux", "uy")
 TRUE = ("lap", "bih", "gradsq")
+
+# The dataset / regression branch: label -> (config beside the defaults, gate, number of terms,
+# limit of card against CPU at the small size as a share of max|coef|, why that limit).
+# Gates: a number = worst ground-truth error in % must stay under it; "fd" = < 0.01% and
+# decoys < 1e-4; None = finite coefficients only (the fit is off by the method, as pdx's is).
+_IRLS = "IRLS stops when a step is under 1e-6: card and CPU may stop one step apart"
+BRANCH = {
+    "slow_pointwise": (dict(), 1.0, 3, 1e-6, ""),
+    "slow_grid_blockwise": (dict(method="blockwise", grid_search=True), 1.0, 3, 1e-6, ""),
+    "weakform_fourier": (dict(method="weakform", weak_basis="fourier", grid_search=True), None, 3, 1e-6, ""),
+    "weakform_rich_fd": (
+        dict(method="weakform", dictionary="rich", weak_operator="fd", weak_basis="gaussian", grid_search=True),
+        "fd", 9, 1e-6, "",
+    ),
+    "weakform_noisy_motion": (
+        dict(method="weakform", perturbation="N5_shifts_noise", shift_mode="jitter", weak_motion_correct=True),
+        None, 3, 1e-6, "",
+    ),
+    "huber_noisy": (dict(regression="huber", perturbation="N2_noise", method="blockwise"), None, 3, 1e-4, _IRLS),
+    "robust_noisy": (
+        dict(robust=True, perturbation="N2_noise", method="blockwise", sign_constraints=(-1, -1, -1)),
+        None, 3, 1e-3, _IRLS + "; a trimmed row or a member's support may flip on a round-off tie",
+    ),
+    "ensemble": (dict(regression="ensemble", n_sample=20000), 1.0, 3, 1e-4, _IRLS),
+    "qr_rich_f32": (
+        dict(dictionary="rich", dtype="float32", grid_search=True), 2.0, 9, 1e-3,
+        "float32 throughout: cuSOLVER's and LAPACK's Householder QR round differently",
+    ),
+    "shift_ut": (dict(perturbation="N1_shifts", correct_shift_ut=True, grid_search=True), None, 3, 1e-6, ""),
+}
 
 
 def _time_ms(fn, reps: int = 15) -> float:
@@ -237,6 +281,145 @@ def _bare_launch(name: str, lib, kg, kb, U, Ut, names, blocks, route=None):
             raise RuntimeError(f"{name}: bare launch failed with CUDA error {rc}")
 
     return launch
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of fn() in ms, each run ended by a synchronize,
+    after one warm-up: for stages that read back from the card as they go."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _train_rows(cfg, dev):
+    """(names, RMS-scaled train rows, their targets) as ``run`` regresses
+    them: the same frames, host draws and 70/30 split."""
+    import numpy as np
+    import torch
+
+    from pdx_torch.pipelines.ks2d_bench import _rms_scale, build_dataset, prepare_frames
+
+    rng = np.random.default_rng(0)
+    names, X, y = build_dataset(cfg, prepare_frames(cfg, dev), rng)
+    tr = torch.as_tensor(rng.permutation(X.shape[0])[: int(0.7 * X.shape[0])], device=dev)
+    return names, X[tr] / _rms_scale(X[tr], names), y[tr]
+
+
+def _time_branch_stages(dev, card: str) -> None:
+    """The new stages most likely to set a wall, each on its own at the
+    full size: the batched QR grid on qr_rich_f32's rows, one robust fit on
+    robust_noisy's, the weak-form build of weakform_rich_fd."""
+    import torch
+
+    from pdx_torch.library.weakform import build_weakform_dataset
+    from pdx_torch.pipelines.ks2d_bench import GRID_ALPHAS, GRID_THRESHOLDS, Ks2dBenchConfig, prepare_frames
+    from pdx_torch.solve.robust import robust_stridge
+    from pdx_torch.solve.stridge import _masked_ridge_qr, stridge_grid, stridge_qr_grid
+    from pdx_torch.ops.linalg import gram_stats
+
+    _n, X, y = _train_rows(Ks2dBenchConfig(**BRANCH["qr_rich_f32"][0]), dev)
+    a = torch.tensor(GRID_ALPHAS, dtype=X.dtype, device=dev)
+    t = torch.tensor(GRID_THRESHOLDS, dtype=X.dtype, device=dev)
+    grid_ms = _host_ms(lambda: stridge_qr_grid(X, y, a, t, max_iter=25))
+    ones = torch.ones((5, 6, X.shape[1]), dtype=X.dtype, device=dev)
+    one_qr_ms = _host_ms(lambda: _masked_ridge_qr(X, y, ones, a[:, None].expand(5, 6)))
+    gram_ms = _host_ms(lambda: stridge_grid(gram_stats(X, y), a, t, max_iter=25))
+    print(f"[stage] batched QR grid (30 points, rows {tuple(X.shape)} {X.dtype}): {grid_ms:.3f} ms, of which one batched "
+          f"QR solve of (5, 6, {X.shape[0] + X.shape[1]}, {X.shape[1]}) {one_qr_ms:.3f} ms; the Gram grid on the same rows "
+          f"{gram_ms:.3f} ms ({card})")
+
+    kw = BRANCH["robust_noisy"][0]
+    _n, X, y = _train_rows(Ks2dBenchConfig(**kw), dev)
+    fit = dict(alpha=1e-6, threshold=1e-10, max_iter=25, signs=list(kw["sign_constraints"]))
+    robust_ms = _host_ms(lambda: robust_stridge(X, y, use_huber=True, trim_frac=0.05, n_bootstrap=30, **fit))
+    print(f"[stage] one robust_stridge fit (trim 5%, 30 members, Huber IRLS, rows {tuple(X.shape)} {X.dtype}): "
+          f"{robust_ms:.3f} ms ({card})")
+
+    cfg = Ks2dBenchConfig(**BRANCH["weakform_rich_fd"][0])
+    fr = prepare_frames(cfg, dev)
+    weak_ms = _host_ms(lambda: build_weakform_dataset(
+        fr["U_for_ut"], dx=fr["dx"], dy=fr["dy"], dt_frame=fr["DT"], lx=cfg.Nx * fr["dx"], ly=cfg.Ny * fr["dy"],
+        basis="gaussian", n_phi=cfg.weak_n_phi, sigma_px=cfg.weak_sigma_px, dictionary="rich", operator="fd"))
+    print(f"[stage] build_weakform_dataset (rich, fd, 64 Gaussian test functions, frames {tuple(fr['U'].shape)}): "
+          f"{weak_ms:.3f} ms ({card})")
+
+
+def _run_branch(dev, card: str, counters: dict) -> None:
+    """Phase 3's second half: the dataset / regression branch at full size."""
+    import torch
+
+    from pdx_torch.pipelines.ks2d_bench import Ks2dBenchConfig, run
+
+    for label, (kw, gate, p, _tol, _why) in BRANCH.items():
+        cfg = Ks2dBenchConfig(**kw)
+        run(cfg, dev)  # warm-up: first-use allocations, cuSOLVER and cuFFT plans
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(cfg, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = {n: c.launches for n, c in counters.items()}
+        if any(moved.values()):
+            raise AssertionError(f"{label}: this branch launches no kernel, yet {moved}")
+        coeffs = dict(zip(res["names"], res["coeffs"]))
+        worst = max(v["rel_err_pct"] for v in res["gt_errors"].values())
+        fit, roll = res["fit"], res["rollout"]
+        if len(res["coeffs"]) != p or not all(math.isfinite(c) for c in res["coeffs"]):
+            raise AssertionError(f"{label}: bad coefficients {res['coeffs']}")
+        if not all(math.isfinite(fit[k]) for k in fit):
+            raise AssertionError(f"{label}: fit not finite: {fit}")
+        if gate is not None and not all(math.isfinite(roll[k]) for k in roll):  # a far-off fit's rollout may blow up
+            raise AssertionError(f"{label}: rollout not finite: {roll}")
+        if gate == "fd":
+            decoys = max(abs(c) for n, c in coeffs.items() if n not in TRUE)
+            if not (worst < 0.01 and decoys < 1e-4):
+                raise AssertionError(f"{label}: recovery degraded (limit 0.01%, decoys 1e-4): {coeffs}")
+        elif gate is not None and not worst < gate:
+            raise AssertionError(f"{label}: recovery degraded (limit {gate}%): {res['gt_errors']}")
+        best = res.get("grid_best")
+        chosen = f", grid best alpha {best['alpha']:g} threshold {best['threshold']:g}" if best else ""
+        print(
+            f"[branch] {label}: warm wall {wall:.4f} s, names {res['names']}, coeffs {res['coeffs']}, "
+            f"worst GT err {worst:.3e}% (gate {gate}), test R2 {fit['test_r2']:.6f}{chosen}, "
+            f"rollout mean {roll['mean']:.3e} ({card})"
+        )
+
+
+def _branch_card_vs_cpu(dev) -> None:
+    """Phase 4's second half: each configuration of the branch on the card
+    against the CPU at the small size, each at its own stated limit."""
+    import numpy as np
+
+    from pdx_torch.pipelines.ks2d_bench import Ks2dBenchConfig, run
+
+    from pdx_torch.sim.ks2d import Ks2dConfig, simulate_ks2d_spectral
+
+    # the spectral stepper (no configuration of the benchmark calls it): 100x100, 200 steps of dt = 0.01
+    sim = Ks2dConfig(dt=1e-2, n_seconds=2.0)
+    on_card, on_cpu = (simulate_ks2d_spectral(sim, device=d)[0].cpu().numpy() for d in (dev, "cpu"))
+    apart = np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max()
+    if not (np.isfinite(on_card).all() and apart < 1e-9):
+        raise AssertionError(f"simulate_ks2d_spectral: card and CPU apart by {apart:.1e} of max|u| (limit 1e-9)")
+    print(f"[small] simulate_ks2d_spectral {on_card.shape}: card and CPU apart by {apart:.1e} of max|u| (limit 1e-9)")
+
+    small = dict(Nx=32, Ny=32, n_seconds=0.2)
+    for label, (kw, _gate, _p, tol, why) in BRANCH.items():
+        on_card = np.array(run(Ks2dBenchConfig(**small, **kw), dev)["coeffs"])
+        on_cpu = np.array(run(Ks2dBenchConfig(**small, **kw), "cpu")["coeffs"])
+        np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=tol * np.abs(on_cpu).max(), err_msg=label)
+        diff = np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max()
+        print(f"[small] {label}: card {on_card.tolist()} vs CPU {on_cpu.tolist()}: apart by {diff:.1e} of max|coef| "
+              f"(limit {tol:g}{'; ' + why if why else ''})")
 
 
 def main() -> int:
@@ -436,6 +619,8 @@ def main() -> int:
         results[name]["launches"] = launches[name]
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the main paths")
+    _run_branch(dev, card, {n: s["counter"] for n, s in specs.items()})
+    _time_branch_stages(dev, card)
 
     # 4. the card against the CPU on a small input
     small = dict(grid_search=True, Nx=32, Ny=32, n_seconds=0.2)
@@ -452,6 +637,7 @@ def main() -> int:
         atol = 1e-6 * np.abs(on_cpu).max() if kw.get("dictionary") == "rich" else 0.0
         np.testing.assert_allclose(on_card, on_cpu, rtol=1e-6, atol=atol, err_msg=label)
         print(f"[small] {label}: card {on_card.tolist()} vs CPU {on_cpu.tolist()}")
+    _branch_card_vs_cpu(dev)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

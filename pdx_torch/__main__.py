@@ -1,7 +1,10 @@
 """pdx_torch CLI — the ported workload entry points.
 
 Usage:
-  python -m pdx_torch ks2d-bench [--grid-search] [--solver auto|gram|pallas] [...]
+  python -m pdx_torch ks2d-bench [--grid-search] [--solver auto|gram|qr|pallas]
+      [--method pointwise|blockwise|weakform] [--dictionary true|rich]
+      [--regression standard|huber|trimmed|sign_constrained|ensemble] [--robust]
+      [--correct-shift-ut] [...]
   python -m pdx_torch ks2d-bench-json [...]
 
 The flags are ``pdx``'s (one per ``Ks2dBenchConfig`` field), plus
@@ -60,6 +63,8 @@ def cmd_ks2d_bench(argv: list[str]) -> int:
     for k, v in res["gt_errors"].items():
         print(f"  {k:8s}: gt={v['gt']:+.6f}, est={v['est']:+.6f}, rel_err={v['rel_err_pct']:.3f}%")
     print("\nFit quality:")
+    if "train_r2" in res["fit"]:
+        print(f"  Train R2={res['fit']['train_r2']:.6f}, RMSE={res['fit']['train_rmse']:.6e}")
     print(f"  Test  R2={res['fit']['test_r2']:.6f}, RMSE={res['fit']['test_rmse']:.6e}")
     r = res["rollout"]
     print(
@@ -74,7 +79,8 @@ def cmd_json(argv: list[str]) -> int:
     from pdx_torch.pipelines.ks2d_bench import run
 
     res = run(*_parse_config("pdx_torch ks2d-bench-json", argv))
-    print(json.dumps(res, default=float))
+    # tensors (robust_info's std and confidence bounds) become lists
+    print(json.dumps(res, default=lambda o: o.tolist()))
     return 0
 
 

@@ -1,6 +1,6 @@
 """Ridge / masked-ridge solves and standardization on sufficient statistics.
 
-Port of ``pdx/ops/linalg.py:21-113``. Every fit runs on the Gram statistics
+Port of ``pdx/ops/linalg.py:21-131``. Every fit runs on the Gram statistics
 ``G = X^T X``, ``b = X^T y``; a support mask keeps shapes static (inactive
 rows/columns become identity rows), so a whole hyperparameter grid is one
 batched ``torch.linalg.solve``. Batch dimensions lead: ``G`` (..., p, p),
@@ -17,23 +17,24 @@ def gram_stats(X: Tensor, y: Tensor, weights: Tensor | None = None) -> dict[str,
     """Sufficient statistics for (weighted) least squares.
 
     G = X^T W X, b = X^T W y, sx = weighted column sums, n = total weight,
-    syy = y^T W y, sy = sum of W y.
+    syy = y^T W y, sy = sum of W y. Leading axes of X (..., n, p), y and
+    the weights (..., n) are batch axes.
     """
     if weights is None:
         Xw = X
         yw = y
-        n = torch.tensor(X.shape[0], dtype=X.dtype, device=X.device)
+        n = torch.tensor(X.shape[-2], dtype=X.dtype, device=X.device)
     else:
-        Xw = X * weights[:, None]
+        Xw = X * weights[..., None]
         yw = y * weights
-        n = torch.sum(weights)
+        n = torch.sum(weights, dim=-1)
     return {
-        "G": X.T @ Xw,
-        "b": X.T @ yw,
-        "sx": torch.sum(Xw, dim=0),
+        "G": X.mT @ Xw,
+        "b": (X.mT @ yw[..., None])[..., 0],
+        "sx": torch.sum(Xw, dim=-2),
         "n": n,
-        "syy": torch.sum(y * yw),
-        "sy": torch.sum(yw),
+        "syy": torch.sum(y * yw, dim=-1),
+        "sy": torch.sum(yw, dim=-1),
     }
 
 
@@ -43,12 +44,13 @@ def standardized_stats(stats: dict[str, Tensor]) -> tuple[Tensor, Tensor, Tensor
     Gs = Xs^T Xs and bs = Xs^T y for Xs = (X - mean) / scale; y is not
     centred, as in the reference: Xs^T y = (b - mean * sy) / scale.
     """
-    G, b, sx, n, sy = stats["G"], stats["b"], stats["sx"], stats["n"], stats["sy"]
+    G, b, sx = stats["G"], stats["b"], stats["sx"]
+    n, sy = stats["n"][..., None], stats["sy"][..., None]  # against (..., p)
     mean = sx / n
     var = torch.diagonal(G, dim1=-2, dim2=-1) / n - mean**2
     std = torch.sqrt(torch.clamp(var, min=0.0))
     scale = torch.where(std > _zero_std_tol(mean, std.dtype), std, torch.ones_like(std))
-    Gc = G - n * mean[..., :, None] * mean[..., None, :]
+    Gc = G - n[..., None] * mean[..., :, None] * mean[..., None, :]
     Gs = Gc / (scale[..., :, None] * scale[..., None, :])
     bs = (b - mean * sy) / scale
     return Gs, bs, mean, scale
@@ -99,3 +101,22 @@ def masked_ridge_solve(G: Tensor, b: Tensor, mask: Tensor, alpha: float | Tensor
     rhs = b * m
     sol = torch.linalg.solve(A, rhs[..., None])[..., 0]
     return sol * m
+
+
+def column_standardize_stats(X: Tensor) -> tuple[Tensor, Tensor]:
+    """(mean, scale) per column; scale = population std, 1 where the column
+    is constant (see :func:`_zero_std_tol`)."""
+    mean = torch.mean(X, dim=-2)
+    std = torch.std(X, dim=-2, correction=0)
+    scale = torch.where(std > _zero_std_tol(mean, std.dtype), std, torch.ones_like(std))
+    return mean, scale
+
+
+def test_sse_from_stats(c: Tensor, G_te: Tensor, b_te: Tensor, syy_te: Tensor) -> Tensor:
+    """Sum of squared residuals ||X_te c - y_te||^2 from test sufficient stats."""
+    quad = torch.einsum("...p,...pq,...q->...", c, G_te, c)
+    cross = torch.einsum("...p,...p->...", c, b_te)
+    return quad - 2.0 * cross + syy_te
+
+
+test_sse_from_stats.__test__ = False  # a library function, not a pytest case

@@ -17,6 +17,9 @@ Tolerances:
   (the rich library's near-zero `one` coefficient: see its test).
 Coefficients are compared, not the selected (alpha, threshold): R^2 ties
 between thresholds may break differently in the last bit.
+
+The configurations outside the grid-search fast path (the dataset /
+regression branch) are in test_torch_ks2d_slow.py.
 """
 
 import dataclasses
@@ -226,18 +229,23 @@ def test_pdx_stats_through_port_grid_from_stats():
     (dict(regression="nope"), ValueError, "regression must be one of"),
     (dict(solver="pallas", grid_search=False), ValueError, "fused streaming grid path"),
     (dict(solver="pallas", derivatives="spectral"), ValueError, "finite"),
-    (dict(method="weakform"), NotImplementedError, "weakform"),
-    (dict(correct_shift_ut=True), NotImplementedError, "correct_shift_ut"),
-    (dict(regression="huber"), NotImplementedError, "robust"),
-    (dict(robust=True), NotImplementedError, "robust"),
-    (dict(solver="qr"), NotImplementedError, "stridge_qr"),
-    (dict(grid_search=False), NotImplementedError, "run_regression"),
-    (dict(dictionary="rich", dtype="float32"), NotImplementedError, "QR"),
+    (dict(solver="pallas", method="weakform"), ValueError, "fused streaming grid path"),
+    (dict(solver="pallas", regression="huber"), ValueError, "fused streaming grid path"),
+    (dict(solver="pallas", robust=True), ValueError, "fused streaming grid path"),
+    (dict(solver="pallas", correct_shift_ut=True), ValueError, "fused streaming grid path"),
+    (dict(method="weakform", weak_operator="fd", weak_grad_cutoff=0.5), ValueError, "grad_cutoff only applies"),
+    (dict(method="weakform", weak_basis="nope"), ValueError, "unknown weak-form basis"),
+    (dict(dtype="float16"), ValueError, "dtype must be one of"),
 ])
 def test_options_outside_the_slice_raise(kw, exc, match):
-    cfg = tb.Ks2dBenchConfig(**{**dict(SMALL, n_seconds=0.01), **kw})
+    """What pdx refuses, the port refuses with the same error; nothing that
+    pdx accepts is refused (see test_torch_ks2d_slow.py for those runs)."""
+    cfg = dict(SMALL, n_seconds=0.01, **kw)
     with pytest.raises(exc, match=match):
-        tb.run(cfg, "cpu")
+        tb.run(tb.Ks2dBenchConfig(**cfg), "cpu")
+    if "dtype" not in kw:  # an unknown dtype fails inside jnp with its own message
+        with pytest.raises(exc, match=match):
+            jb.run(jb.Ks2dBenchConfig(**cfg))
 
 
 def test_rich_dictionary_f64_matches_pdx():
@@ -259,7 +267,33 @@ def test_cli(cmd):
         res = json.loads(text)
         assert res["names"] == ["lap", "bih", "gradsq"] and res["config"]["solver"] == "pallas"
     else:
-        assert "Ground-truth comparison" in text and "Rollout RMSE" in text
+        assert "Ground-truth comparison" in text and "Rollout RMSE" in text and "Train" not in text
+
+
+@pytest.mark.parametrize("cmd", ["ks2d-bench", "ks2d-bench-json"])
+def test_cli_default_invocation_and_robust_options(cmd):
+    """Without --grid-search (pdx's own default invocation) the result has
+    train metrics, which the text output prints; --robust puts tensors into
+    robust_info, which the JSON output writes as lists."""
+    small = ["--Nx", "16", "--Ny", "16", "--n-seconds", "0.05", "--n-sample", "1500", "--device", "cpu"]
+    robust = ["--robust", "--n-bootstrap", "4", "--sign-constraints=-1,-1,-1", "--method", "weakform", "--weak-n-phi", "40"]
+    for extra in ([], robust, ["--regression", "ensemble", "--n-bootstrap", "4"], ["--solver", "qr", "--correct-shift-ut"]):
+        out = io.StringIO()
+        with redirect_stdout(out):
+            assert cli_main([cmd, *small, *extra]) == 0
+        text = out.getvalue()
+        if cmd == "ks2d-bench":
+            assert "Train R2=" in text and "Test  R2=" in text
+            continue
+        res = json.loads(text)
+        assert "train_r2" in res["fit"] and len(res["coeffs"]) == 3
+        if extra is robust:
+            info = res["robust_info"]
+            assert info["n_bootstrap"] == 4 and all(len(info[k]) == 3 for k in ("std", "ci_95_low", "ci_95_high"))
+        elif "ensemble" in extra:
+            assert len(res["robust_info"]["std"]) == 3
+        else:
+            assert res["robust_info"] is None
 
 
 def test_cli_without_device_needs_a_card(monkeypatch):

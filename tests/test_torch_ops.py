@@ -131,3 +131,37 @@ class TestLinalg:
             for j in range(3):
                 want = jlin.masked_ridge_solve(jnp.asarray(G), jnp.asarray(b), jnp.asarray(masks[i, j]), alphas[i, j])
                 _close(got[i, j], want, atol=1e-14)
+
+    def test_column_standardize_stats(self):
+        """Population std (jnp.std's default); a constant column keeps scale 1."""
+        rng = np.random.default_rng(8)
+        X = np.column_stack([rng.normal(size=300) * 3.0, np.full(300, 2.5), rng.normal(size=300) + 10.0])
+        mean, scale = tlin.column_standardize_stats(torch.from_numpy(X))
+        jmean, jscale = jlin.column_standardize_stats(jnp.asarray(X))
+        _close(mean, jmean)
+        _close(scale, jscale)
+        assert _np(scale)[1] == 1.0
+        batched = tlin.column_standardize_stats(torch.from_numpy(np.stack([X, 2.0 * X])))
+        _close(batched[1][1], 2.0 * _np(scale) - np.array([0.0, 1.0, 0.0]))
+
+    def test_sse_from_stats(self):
+        X, y = _problem(9)
+        c = np.random.default_rng(10).normal(size=(3, 5))
+        G, b, syy = X.T @ X, X.T @ y, float(y @ y)
+        got = tlin.test_sse_from_stats(torch.from_numpy(c), torch.from_numpy(G), torch.from_numpy(b), torch.tensor(syy, dtype=torch.float64))
+        want = jlin.test_sse_from_stats(jnp.asarray(c), jnp.asarray(G), jnp.asarray(b), jnp.asarray(syy))
+        _close(got, want)
+        _close(got, ((X @ c.T - y[:, None]) ** 2).sum(0), rtol=1e-9)
+
+    def test_gram_stats_batched(self):
+        """Leading batch axes: each member's statistics equal its own."""
+        rng = np.random.default_rng(11)
+        X, y = rng.normal(size=(3, 50, 4)), rng.normal(size=(3, 50))
+        got = tlin.gram_stats(torch.from_numpy(X), torch.from_numpy(y))
+        std = tlin.standardized_stats(got)
+        for i in range(3):
+            one = tlin.gram_stats(torch.from_numpy(X[i]), torch.from_numpy(y[i]))
+            for k in one:
+                _close(got[k][i] if got[k].ndim else got[k], one[k], rtol=1e-13, atol=1e-13)
+            for g, w in zip(std, tlin.standardized_stats(one)):
+                _close(g[i], w, rtol=1e-12, atol=1e-13)

@@ -55,7 +55,26 @@ Phases, each of which exits non-zero on failure:
    within rtol 1e-6 (and, for the rich library only, 1e-6 of max|coef|,
    for decoys the CPU leaves at ~1e-10 where the card gives 0); the looser
    limits of the dataset / regression branch stand beside its table below;
-   the spectral stepper at 100x100 within 1e-9 of max|u|.
+   the spectral stepper at 100x100 within 1e-9 of max|u|;
+5. ``[patch]``: the real-image patch ensemble,
+   ``pipelines.patch_discovery.run``, with registration in ``auto`` mode
+   (the warp-to-previous Farnebäck chain, each flow at half resolution), on
+   two stacks of ``tools/make_synth_stack.make_stack``: the real dataset's
+   shape (51 x 1024 x 1280 uint16, the default configuration) and
+   ``bench.py``'s (51 x 512 x 640 float64, skip 12, subsample 6). For each:
+   the warm wall (median of 3), ``[stage]`` lines (preprocessing head,
+   registration in total and per flow, local-poly datasets, patch fits,
+   held-out evaluation; host clock ending in a synchronize, median of 3),
+   the residual motion (RMS of frame-to-previous differences) before and
+   after registration. Gates: patches fit, finite coefficients and
+   metrics, residual motion lowered by registration, no kernel launched
+   (the path has none). One run writes the artifacts to a temporary
+   directory and checks the CSV header, the report's "Aggregated PDE:"
+   line and the JSON summary. Then the card against the CPU on 12 x 128 x
+   128 frames: registration off (coefficients within 1e-10 of max|coef|)
+   and on (1e-5 of max|coef|, the same kept support; registered frames
+   within 5e-6), and the chain with ``flow_ds=2`` passed to both on
+   128 x 128 working frames (within 5e-6): the limits of the CPU tests.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero.
@@ -63,6 +82,7 @@ The second-to-last line is a JSON summary of the kernels; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -422,6 +442,161 @@ def _branch_card_vs_cpu(dev) -> None:
               f"(limit {tol:g}{'; ' + why if why else ''})")
 
 
+def _motion(U) -> float:
+    """Residual motion of a (T, H, W) stack: RMS of frame-to-previous differences."""
+    import torch
+
+    return float(torch.sqrt(torch.mean((U[1:] - U[:-1]) ** 2)))
+
+
+PATCH_SMALL = dict(data_dir="unused", max_images=12, skip=4, subsample=2, patch=11, overlap=5,
+                   samples_per_patch=60, rt=1, rs=2, deg=2, write_artifacts=False)
+
+
+def _patch_run(label: str, U, cfg, dev, card: str, counters: dict) -> dict:
+    """One stack through the patch ensemble: warm wall, stage lines, gates."""
+    import numpy as np
+    import torch
+
+    from pdx_torch.pipelines import patch_discovery as pd
+
+    U.setflags(write=False)  # a read-only stack is shipped to the card once (io_host.images.device_stack)
+    pd.run(cfg, U_raw=U, device=dev)  # warm-up
+    walls = []
+    for c in counters.values():
+        c.launches = 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pd.run(cfg, U_raw=U, device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    moved = {n: c.launches for n, c in counters.items()}
+    if any(moved.values()):
+        raise AssertionError(f"{label}: the patch ensemble launches no kernel, yet {moved}")
+    C = np.asarray(out["patch_coeffs"])
+    m = out["global_test_metrics"]
+    if not (out["n_patches"] > 0 and np.isfinite(C).all() and np.isfinite(out["stats"]["coeffs"]).all()):
+        raise AssertionError(f"{label}: no patch fit or coefficients not finite: {out['n_patches']}, {C}")
+    metrics = [v for pm in out["patch_train_metrics"] + out["patch_test_metrics"] for v in pm.values()]
+    if not all(math.isfinite(v) for v in metrics + list(m.values()) + [out["one_step_rmse"]]):
+        raise AssertionError(f"{label}: metrics not finite: {m}, one-step {out['one_step_rmse']}")
+    print(f"[patch] {label}: warm wall {statistics.median(walls):.4f} s (median of 3: "
+          f"{', '.join(f'{w:.4f}' for w in walls)}), {out['n_patches']} patches, working grid {out['working_shape']}, "
+          f"test R2 {m['r2']:.6f}, one-step RMSE {out['one_step_rmse']:.6f}, launches {moved}; {out['equation']} ({card})")
+
+    # the stages on their own, in run's order
+    names = pd._term_names(cfg)
+    T = U.shape[0]
+    U_pre = pd.preprocess_head(cfg, U, dev)
+    U_reg = pd.register(cfg, U_pre)
+    before, after = _motion(U_pre), _motion(U_reg)
+    if not after < before:
+        raise AssertionError(f"{label}: registration did not lower the residual motion: {before} -> {after}")
+    Uw = pd.working_stack(cfg, U_reg)
+    rng, tr, te, t_valid, t_test = pd.sample_patch_points(cfg, tuple(Uw.shape))
+    d_tr, d_te = pd.patch_datasets(cfg, Uw, tr, te)
+    fit = lambda: pd.all_patch_fits(d_tr, d_te, names=names, alpha=cfg.alpha, threshold=cfg.threshold)  # noqa: E731
+    h, w = Uw.shape[1:]
+    gpts = pd._safe_sample_points(rng, t_test, h, w, cfg.rs, 800)
+    spts = pd._safe_sample_points(rng, t_valid[:-1], h, w, cfg.rs, 1200)
+    agg = torch.as_tensor(out["stats"]["coeffs"], dtype=Uw.dtype, device=dev)
+
+    def heldout():
+        dg, ds = pd._local_poly(cfg, Uw, gpts), pd._local_poly(cfg, Uw, spts)
+        return pd.heldout_eval(Uw, pd.feature_matrix(dg, names), dg[:, 1], pd.feature_matrix(ds, names),
+                               torch.as_tensor(spts, device=dev), agg, cfg.dt)
+
+    ms = {
+        "preprocessing head (ship, INTER_AREA, cast, blur, normalise)": _host_ms(lambda: pd.preprocess_head(cfg, U, dev), 3),
+        "registration": _host_ms(lambda: pd.register(cfg, U_pre), 3),
+        "smooth, crop and host draws": _host_ms(
+            lambda: pd.sample_patch_points(cfg, tuple(pd.working_stack(cfg, U_reg).shape)), 3),
+        f"local-poly datasets ({tr.shape[0]} patches x ({tr.shape[1]} + {te.shape[1]}) points)": _host_ms(
+            lambda: pd.patch_datasets(cfg, Uw, tr, te), 3),
+        f"patch fits ({tr.shape[0]} STRidge fits as one batch)": _host_ms(fit, 3),
+        "held-out evaluation (2000 points' derivatives, metrics, one-step)": _host_ms(heldout, 3),
+    }
+    for name, t in ms.items():
+        extra = f", {t / (T - 1):.3f} ms a flow ({T - 1} flows of {tuple(U_pre.shape[1:])})" if name == "registration" else ""
+        print(f"[stage] {label} {name}: {t:.3f} ms{extra} ({card})")
+    print(f"[patch] {label}: residual motion {before:.6e} unregistered, {after:.6e} registered ({card})")
+    return out
+
+
+def _patch_card_vs_cpu(dev) -> None:
+    """The patch ensemble on the card against the CPU at a small size."""
+    import numpy as np
+
+    from tools.make_synth_stack import make_stack
+
+    from pdx_torch.pipelines import patch_discovery as pd
+    from pdx_torch.register.farneback import farneback_register_sequence
+
+    U = make_stack(T=12, H=128, W=128, seed=1)
+    for reg, tol in ((False, 1e-10), (True, 1e-5)):
+        cfg = pd.PatchDiscoveryConfig(registration=reg, **PATCH_SMALL)
+        on_card, on_cpu = (pd.run(cfg, U_raw=U, device=d) for d in (dev, "cpu"))
+        a, b = np.asarray(on_card["patch_coeffs"]), np.asarray(on_cpu["patch_coeffs"])
+        apart = np.abs(a - b).max() / np.abs(b).max()
+        same = np.array_equal(on_card["stats"]["keep"], on_cpu["stats"]["keep"])
+        if not (apart < tol and same):
+            raise AssertionError(f"patch registration={reg}: card and CPU apart by {apart:.1e} of max|coef| "
+                                 f"(limit {tol:g}), same support {same}")
+        print(f"[small] patch registration={reg} {U.shape}: patch coefficients apart by {apart:.1e} of max|coef| "
+              f"(limit {tol:g}), same kept support; {on_card['equation']}")
+    cfg = pd.PatchDiscoveryConfig(registration=True, **PATCH_SMALL)
+    for label, raw, kw in (("run's chain (flow_ds 1: 64 px frames)", U, {}),
+                           ("chain with flow_ds=2 on 128 px frames", make_stack(T=12, H=256, W=256, seed=2),
+                            dict(flow_ds=2))):
+        reg = [farneback_register_sequence(pd.preprocess_head(cfg, raw, d), **kw).cpu().numpy() for d in (dev, "cpu")]
+        apart = np.abs(reg[0] - reg[1]).max()
+        if not apart < 5e-6:
+            raise AssertionError(f"{label}: registered frames apart by {apart:.1e} (limit 5e-6)")
+        print(f"[small] {label}: registered frames on card and CPU apart by {apart:.1e} (limit 5e-6)")
+
+
+def _patch_phase(dev, card: str, counters: dict) -> None:
+    """Phase 5: the real-image patch ensemble at full size, its artifacts,
+    and the card against the CPU."""
+    import json as _json
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from tools.make_synth_stack import make_stack
+
+    from pdx_torch.pipelines.patch_discovery import PatchDiscoveryConfig, run
+
+    t0 = time.perf_counter()
+    full = make_stack(T=51, H=1024, W=1280)
+    print(f"[patch] made the 51 x 1024 x 1280 uint16 stack on the host in {time.perf_counter() - t0:.2f} s")
+    _patch_run("real dataset's shape 51x1024x1280 uint16, default configuration", full,
+               PatchDiscoveryConfig(write_artifacts=False, data_dir="unused"), dev, card, counters)
+    del full
+    bench = make_stack(T=51, H=512, W=640).astype(np.float64)
+    bench_cfg = PatchDiscoveryConfig(write_artifacts=False, data_dir="unused", skip=12, subsample=6)
+    _patch_run("bench.py's stack 51x512x640 float64, skip 12, subsample 6", bench, bench_cfg, dev, card, counters)
+    print("[patch] for scale: pdx's own TPU record on this stack is 1.63 s warm (docs/RESULTS.md:35,45), "
+          "the reference's number, not this port's")
+
+    with tempfile.TemporaryDirectory() as d:
+        out = run(dataclasses.replace(bench_cfg, write_artifacts=True, output_dir=d), U_raw=bench, device=dev)
+        csv = (Path(d) / "PATCH_PDE_COEFFS.csv").read_text()
+        report = (Path(d) / "PATCH_PDE_REPORT.txt").read_text()
+        summary = _json.loads((Path(d) / "patch_pde_summary.json").read_text())
+        if not csv.startswith("term,median,q25,q75,nonzero_freq,sign_stability,agg_coeff") or "lap(u)" not in csv:
+            raise AssertionError(f"PATCH_PDE_COEFFS.csv: unexpected content {csv[:200]!r}")
+        if f"Aggregated PDE:\n  {out['equation']}" not in report:
+            raise AssertionError("PATCH_PDE_REPORT.txt: no 'Aggregated PDE:' line with the equation")
+        if summary["equation"] != out["equation"] or summary["n_patches"] != out["n_patches"] or len(
+                summary["agg_coeffs"]) != len(out["names"]):
+            raise AssertionError(f"patch_pde_summary.json disagrees with the run: {summary}")
+        print(f"[patch] artifacts: {sorted(p.name for p in Path(d).iterdir())}, CSV header, report and JSON summary checked")
+    _patch_card_vs_cpu(dev)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -638,6 +813,9 @@ def main() -> int:
         np.testing.assert_allclose(on_card, on_cpu, rtol=1e-6, atol=atol, err_msg=label)
         print(f"[small] {label}: card {on_card.tolist()} vs CPU {on_cpu.tolist()}")
     _branch_card_vs_cpu(dev)
+
+    # 5. the real-image patch ensemble
+    _patch_phase(dev, card, {n: s["counter"] for n, s in specs.items()})
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

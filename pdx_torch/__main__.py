@@ -6,10 +6,12 @@ Usage:
       [--regression standard|huber|trimmed|sign_constrained|ensemble] [--robust]
       [--correct-shift-ut] [...]
   python -m pdx_torch ks2d-bench-json [...]
+  python -m pdx_torch patch-discover --data-dir DIR [--no-registration]
+      [--register-mode auto|compose|chain|to_first] [--patch 21] [...]
 
-The flags are ``pdx``'s (one per ``Ks2dBenchConfig`` field), plus
-``--device`` (default ``cuda``). The run uses the CUDA card and fails
-without one; ``--device cpu`` runs it on the CPU.
+The flags are ``pdx``'s (for ks2d-bench one per ``Ks2dBenchConfig``
+field), plus ``--device`` (default ``cuda``). The run uses the CUDA card and
+fails without one; ``--device cpu`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -84,7 +86,13 @@ def cmd_json(argv: list[str]) -> int:
     return 0
 
 
-COMMANDS = {"ks2d-bench": cmd_ks2d_bench, "ks2d-bench-json": cmd_json}
+def cmd_patch_discover(argv: list[str]) -> int:
+    from pdx_torch.pipelines.patch_discovery import cmd_patch_discover
+
+    return cmd_patch_discover(argv)
+
+
+COMMANDS = {"ks2d-bench": cmd_ks2d_bench, "ks2d-bench-json": cmd_json, "patch-discover": cmd_patch_discover}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,10 +1,12 @@
 """Carry the system's state across from ``pdx`` (numpy in, tensors out).
 
 The system has no weights: its state is the frame stack, the regression
-dataset and the Gram statistics. These functions take what ``pdx`` returns,
-after ``np.asarray`` on each array, and hand it to the port, so a test can
-feed the JAX package's own trajectory, rows or statistics into ``pdx_torch``
-and check the simulation, the dataset and the regression apart. Nothing here imports ``pdx``.
+dataset and the Gram statistics, and for the real-image pipelines the raw,
+preprocessed and registered stacks, the flows and the local-poly datasets.
+These functions take what ``pdx`` returns, after ``np.asarray`` on each
+array, and hand it to the port, so a test can feed the JAX package's own
+trajectory, rows, statistics, registered stack or flows into ``pdx_torch``
+and check each stage apart. Nothing here imports ``pdx``.
 """
 
 from __future__ import annotations
@@ -45,3 +47,15 @@ def dataset_from_numpy(
     arrays as tensors (copied, dtype kept), so both packages regress the
     same rows."""
     return list(names), torch.tensor(np.asarray(X), device=device), torch.tensor(np.asarray(y), device=device)
+
+
+def stack_from_numpy(a, device: str | torch.device = "cpu") -> torch.Tensor:
+    """A frame stack (raw uint16, preprocessed or registered) or a (P, n, 6)
+    local-poly dataset -> a tensor (copied, dtype kept)."""
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def flows_from_numpy(fx, fy, device: str | torch.device = "cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """A flow pair (fx, fy), as ``farneback_flow`` or ``batched_pair_flows``
+    return it, -> two tensors (copied, dtype kept)."""
+    return stack_from_numpy(fx, device), stack_from_numpy(fy, device)

@@ -1,13 +1,23 @@
-"""Moving-average denoisers (port of ``pdx/ops/filters.py:28-59``).
+"""Smoothing filters (port of ``pdx/ops/filters.py:28-133``).
 
 ``time_smooth_moving_average`` smooths along axis 0 with reflect padding;
 ``smooth_1d`` along the trailing axis with edge padding. Both sum a window
-as a difference of cumulative sums, as ``pdx`` does. The Gaussian, median,
-TV and Savitzky-Golay filters of that module come with later slices.
+as a difference of cumulative sums, as ``pdx`` does.
+
+``gaussian_filter_reflect`` and ``gaussian_filter1d_reflect`` are
+scipy.ndimage's Gaussian filter with its default "reflect" border, which is
+numpy's **symmetric** padding: the edge sample is repeated
+(``torch.nn.functional.pad(mode="reflect")`` does not repeat it and is not
+this border). Each axis pass is one gather of the padded line and one product
+of its sliding windows with the taps, where ``pdx`` adds shifted copies tap by
+tap; the two sum the same products in another order.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -48,3 +58,67 @@ def smooth_1d(x: Tensor, window: int) -> Tensor:
     xp = x[..., idx]
     cs = torch.cat([torch.zeros_like(xp[..., :1]), torch.cumsum(xp, dim=-1)], dim=-1)
     return (cs[..., w:] - cs[..., :-w]) / float(w)
+
+
+def _gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
+    """scipy.ndimage._gaussian_kernel1d semantics (order 0), float64."""
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    phi = np.exp(-0.5 / (sigma * sigma) * x**2)
+    return phi / phi.sum()
+
+
+def _reflect_sym_np(idx: np.ndarray, L: int) -> np.ndarray:
+    """np.pad(mode="symmetric") index folding; folds again while any index
+    is still outside [0, L), so taps that outnumber the pixels work."""
+    idx = np.asarray(idx).copy()
+    while ((idx < 0) | (idx >= L)).any():
+        idx = np.where(idx < 0, -1 - idx, idx)
+        idx = np.where(idx >= L, 2 * L - 1 - idx, idx)
+    return idx
+
+
+@lru_cache(maxsize=256)
+def _sym_pad_index(L: int, n: int, device: torch.device) -> Tensor:
+    """Indices of a line of length L padded by n on each side, symmetric."""
+    return torch.as_tensor(_reflect_sym_np(np.arange(-n, L + n), L), device=device)
+
+
+def symmetric_windows(x: Tensor, K: int, dim: int) -> Tensor:
+    """Sliding windows of K samples along ``dim`` after symmetric padding by
+    K // 2 on each side: x's shape with ``dim`` moved last, plus a trailing
+    axis of K. A product with a (K,) kernel correlates; with a (K, C)
+    matrix, C kernels at once."""
+    xp = x.index_select(dim, _sym_pad_index(x.shape[dim], K // 2, x.device))
+    return xp.movedim(dim, -1).unfold(-1, K, 1)
+
+
+def correlate1d_symmetric(x: Tensor, k: Tensor, dim: int) -> Tensor:
+    """``x`` correlated along ``dim`` with the odd-length kernel ``k`` under
+    symmetric padding (scipy's "reflect"); same shape as ``x``."""
+    return (symmetric_windows(x, k.shape[0], dim) @ k).movedim(-1, dim)
+
+
+@lru_cache(maxsize=64)
+def _gaussian_taps(sigma: float, truncate: float, dtype: torch.dtype, device: torch.device) -> Tensor:
+    radius = int(truncate * sigma + 0.5)
+    return torch.as_tensor(_gaussian_kernel1d(sigma, radius), dtype=dtype, device=device)
+
+
+def gaussian_filter_reflect(f: Tensor, sigma: float, truncate: float = 4.0) -> Tensor:
+    """Separable Gaussian filter on the trailing two axes, matching
+    scipy.ndimage.gaussian_filter's defaults: radius
+    ``int(truncate * sigma + 0.5)``, symmetric border."""
+    sigma = float(sigma)
+    if sigma <= 0:
+        return f
+    k = _gaussian_taps(sigma, float(truncate), f.dtype, f.device)
+    return correlate1d_symmetric(correlate1d_symmetric(f, k, f.ndim - 2), k, f.ndim - 1)
+
+
+def gaussian_filter1d_reflect(x: Tensor, sigma: float, axis: int = -1, truncate: float = 4.0) -> Tensor:
+    """1-D scipy-compatible Gaussian filter along ``axis``."""
+    sigma = float(sigma)
+    if sigma <= 0:
+        return x
+    k = _gaussian_taps(sigma, float(truncate), x.dtype, x.device)
+    return correlate1d_symmetric(x, k, axis % x.ndim)

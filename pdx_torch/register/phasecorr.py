@@ -7,9 +7,10 @@ weighted centroid around the peak with wrap-around indexing, and
 centre-origin unwrapping. Leading axes are batched (one FFT for every frame
 pair), where ``pdx`` uses ``vmap``.
 
-Only the periodic variant is ported: ``border="wrap"`` with
-``smooth="periodic"``. The reflect border needs ``shift_reflect`` and
-``gaussian_filter_reflect``, which come with slice 3 of the port.
+Stabilisation takes ``pdx``'s two borders: ``border="wrap"`` with
+``smooth="periodic"`` (the KS-2D benchmark), and the reflect-101 shift with
+scipy's Gaussian for the estimate (``border="reflect"``,
+``smooth="reflect"``; the real-image variant).
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from pdx_torch.ops.interp import shift_periodic
+from pdx_torch.ops.filters import gaussian_filter_reflect
+from pdx_torch.ops.interp import shift_periodic, shift_reflect
 from pdx_torch.ops.spectral import gaussian_smooth_periodic
 
 
@@ -82,29 +84,33 @@ def stabilize_translation_sequence(
     ``to_first`` aligns every frame to frame 0 (one batched correlation and
     one batched shift); ``to_prev`` aligns each frame to the previous
     aligned one, a loop over frames where ``pdx`` has ``lax.scan``.
+    ``border="wrap"`` shifts periodically, any other border by reflect-101;
+    ``smooth="periodic"`` blurs the estimate spectrally, any other value by
+    scipy's reflect Gaussian.
     """
     if mode not in {"to_first", "to_prev"}:
         raise ValueError("unknown stabilization mode: use 'to_first' or 'to_prev'")
-    if border != "wrap" or smooth != "periodic":
-        raise NotImplementedError(
-            "border='reflect' / smooth='reflect' need shift_reflect and "
-            "gaussian_filter_reflect, which land with slice 3 of the port"
-        )
     sigma = float(estimate_sigma_px)
 
     def smooth_fn(x: Tensor) -> Tensor:
-        return gaussian_smooth_periodic(x, sigma) if sigma > 0 else x
+        if sigma <= 0:
+            return x
+        if smooth == "periodic":
+            return gaussian_smooth_periodic(x, sigma)
+        return gaussian_filter_reflect(x, sigma)
+
+    shift_fn = shift_periodic if border == "wrap" else shift_reflect
 
     if mode == "to_first":
         dr, dc = phase_correlate(smooth_fn(U[0]), smooth_fn(U[1:]))
-        aligned = shift_periodic(U[1:], -dr, -dc)
+        aligned = shift_fn(U[1:], -dr, -dc)
         return torch.cat([U[:1], aligned], dim=0)
 
     ref_est = smooth_fn(U[0])
     out = [U[0]]
     for mov in U[1:]:
         dr, dc = phase_correlate(ref_est, smooth_fn(mov))
-        shifted = shift_periodic(mov, -dr, -dc)
+        shifted = shift_fn(mov, -dr, -dc)
         ref_est = smooth_fn(shifted)
         out.append(shifted)
     return torch.stack(out, dim=0)

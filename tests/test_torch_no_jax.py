@@ -1,6 +1,7 @@
 """pdx_torch and chip_smoke.py must never import jax (nor pdx, whose
-__init__ imports jax): neither on import nor while a run outside the
-grid-search fast path is under way."""
+__init__ imports jax): neither on import nor while a run is under way (the
+KS-2D dataset / regression branch, and the patch ensemble with registration
+on)."""
 
 import os
 import subprocess
@@ -16,12 +17,22 @@ import pdx_torch.ops.kernels._build, pdx_torch.ops.kernels.fused_gram, pdx_torch
 import pdx_torch.ops.spectral, pdx_torch.ops.interp, pdx_torch.ops.filters
 import pdx_torch.sim.perturb, pdx_torch.sim.ks2d, pdx_torch.register.phasecorr
 import pdx_torch.ops.linalg, pdx_torch.solve.stridge, pdx_torch.solve.robust, pdx_torch.library.weakform
+import pdx_torch.preprocess, pdx_torch.interop, pdx_torch.library.localpoly, pdx_torch.ops.metrics
+import pdx_torch.utils.hostmem, pdx_torch.io_host.images, pdx_torch.io_host.artifacts
+import pdx_torch.register.farneback, pdx_torch.pipelines.patch_discovery, pdx_torch.report.pipeline_figures
 import chip_smoke
 from pdx_torch.pipelines.ks2d_bench import Ks2dBenchConfig, run
 small = dict(Nx=16, Ny=16, n_seconds=0.05, n_sample=1500)
 for kw in (dict(), dict(method="weakform", robust=True, n_bootstrap=4), dict(solver="qr", correct_shift_ut=True, grid_search=True)):
     res = run(Ks2dBenchConfig(**small, **kw), "cpu")  # the dataset / regression branch
     assert len(res["coeffs"]) == 3 and "train_r2" in res["fit"], res
+import numpy as np
+from tools.make_synth_stack import make_stack
+from pdx_torch.pipelines.patch_discovery import PatchDiscoveryConfig, run as patch_run
+out = patch_run(PatchDiscoveryConfig(data_dir="unused", max_images=12, skip=4, subsample=2, patch=11, overlap=5,
+                                     samples_per_patch=40, rt=1, rs=2, deg=2, write_artifacts=False),
+                U_raw=make_stack(T=12, H=96, W=96), device="cpu")  # registration on: the Farneback chain
+assert out["n_patches"] > 0 and np.isfinite(out["patch_coeffs"]).all(), out
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "pdx.")) or m == "pdx")
 assert not bad, bad
 print("clean")

@@ -4,6 +4,7 @@ The same numpy inputs go through both packages; the port keeps pdx's
 operation order, so only reassociation inside XLA / LAPACK separates them.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,6 +75,43 @@ class TestMetrics:
         y, p = rng.normal(size=500), rng.normal(size=500)
         _close(tmet.rmse(torch.from_numpy(y), torch.from_numpy(p)), jmet.rmse(jnp.asarray(y), jnp.asarray(p)))
         _close(tmet.r2_score(torch.from_numpy(y), torch.from_numpy(p)), jmet.r2_score(jnp.asarray(y), jnp.asarray(p)))
+
+    def test_regression_metrics_batched(self):
+        """Leading axes are a batch (one row of metrics per patch, where pdx
+        vmaps); each row equals pdx's scalar."""
+        rng = np.random.default_rng(2)
+        y, p = rng.normal(size=(2, 4, 50))
+        got = tmet.regression_metrics(torch.from_numpy(y), torch.from_numpy(p))
+        want = jax.vmap(jmet.regression_metrics)(jnp.asarray(y), jnp.asarray(p))
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].shape == (4,)
+            _close(got[k], want[k])
+
+    @pytest.mark.parametrize("n_keep", [0, 1, 7, 8])
+    def test_masked_regression_metrics(self, n_keep):
+        """The median of an even count averages the middle pair, as
+        jnp.nanmedian does; an empty mask gives NaN there too."""
+        rng = np.random.default_rng(3)
+        y, p = rng.normal(size=(2, 20))
+        mask = np.zeros(20, bool)
+        mask[rng.permutation(20)[:n_keep]] = True
+        got = tmet.masked_regression_metrics(torch.from_numpy(y), torch.from_numpy(p), torch.from_numpy(mask))
+        want = jmet.masked_regression_metrics(jnp.asarray(y), jnp.asarray(p), jnp.asarray(mask))
+        for k in want:
+            w = np.asarray(want[k])
+            if n_keep == 0:
+                assert np.isnan(got[k].item()) == np.isnan(w), k
+            else:
+                np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-12, atol=1e-12, err_msg=k)
+
+    def test_support_f1_and_relative_errors(self):
+        est = np.array([0.0, 1.0, -2.0, 1e-9, 3.0])
+        true = np.array([1.0, 1.0, 0.0, 0.0, 2.5])
+        t_est, t_true = torch.from_numpy(est), torch.from_numpy(true)
+        _close(tmet.f1_support_score(t_est, t_true), jmet.f1_support_score(jnp.asarray(est), jnp.asarray(true)))
+        _close(tmet.coefficient_relative_errors(t_est, t_true),
+               jmet.coefficient_relative_errors(jnp.asarray(est), jnp.asarray(true)))
 
 
 def _problem(seed=0, n=400, p=5):

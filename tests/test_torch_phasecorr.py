@@ -17,6 +17,7 @@ import torch
 from scipy.ndimage import gaussian_filter
 
 from pdx.ops.interp import shift_periodic as jshift
+from pdx.ops.interp import shift_reflect as jshift_reflect
 from pdx.register import phasecorr as jpc
 from pdx_torch.register import phasecorr as tpc
 
@@ -84,10 +85,37 @@ def test_stabilize(trajectory, mode, sigma):
 
 
 def test_reflect_border_and_bad_mode_raise(trajectory):
+    """The reflect border and the reflect smoothing are ported (earlier
+    versions of the port raised NotImplementedError); an unknown mode raises."""
     U = torch.from_numpy(trajectory[0])
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tpc.stabilize_translation_sequence(U, border="reflect")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tpc.stabilize_translation_sequence(U, smooth="reflect")
+    assert tpc.stabilize_translation_sequence(U, border="reflect").shape == U.shape
+    assert tpc.stabilize_translation_sequence(U, smooth="reflect", estimate_sigma_px=0.6).shape == U.shape
     with pytest.raises(ValueError, match="mode"):
         tpc.stabilize_translation_sequence(U, mode="sideways")
+
+
+@pytest.fixture(scope="module")
+def noisy_jitter():
+    """A smooth field under sub-pixel jitter by the reflect-101 shift, with
+    2% noise: noise-free jitter leaves the phase correlation of both
+    packages ill-conditioned (ROADMAP F5)."""
+    base = _field(seed=3)
+    rng = np.random.default_rng(4)
+    s = rng.uniform(-2.0, 2.0, size=(5, 2))
+    frames = [base] + [np.asarray(jshift_reflect(jnp.asarray(base), a, b)) for a, b in s]
+    return np.stack(frames) + 0.02 * rng.normal(size=(6,) + base.shape)
+
+
+@pytest.mark.parametrize("mode", ["to_first", "to_prev"])
+@pytest.mark.parametrize("sigma", [0.0, 0.6])
+def test_stabilize_reflect(noisy_jitter, mode, sigma):
+    """border="reflect", smooth="reflect" (the real-image variant) against pdx."""
+    U = noisy_jitter
+    kw = dict(mode=mode, estimate_sigma_px=sigma, border="reflect", smooth="reflect")
+    got = tpc.stabilize_translation_sequence(torch.from_numpy(U), **kw)
+    want = np.asarray(jpc.stabilize_translation_sequence(jnp.asarray(U), **kw))
+    assert got.shape == U.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL * np.abs(want).max())
+    before = np.sqrt(np.mean((U[1:, 8:-8, 8:-8] - U[:1, 8:-8, 8:-8]) ** 2))
+    after = np.sqrt(np.mean((got.numpy()[1:, 8:-8, 8:-8] - U[:1, 8:-8, 8:-8]) ** 2))
+    assert after < 0.5 * before

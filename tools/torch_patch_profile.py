@@ -1,0 +1,101 @@
+"""Profile the port's patch ensemble on one CUDA card.
+
+    python tools/torch_patch_profile.py [--full] [--out DIR]
+
+Runs ``pdx_torch.pipelines.patch_discovery.run`` on ``bench.py``'s stack
+(``make_stack(51, 512, 640)`` as float64, skip 12, subsample 6; ``--full``:
+the real dataset's 51 x 1024 x 1280 uint16 with the default configuration),
+warms it up, then traces one run and one registration flow with
+``torch.profiler`` (CPU and CUDA activities). Prints, per traced window:
+the host wall, the CUDA kernels launched, their summed device time, the
+device's busy and idle share of the wall, and the ten costliest kernels;
+writes the one flow's Chrome trace to ``--out`` (default ``outputs/profile/``).
+The profiler's own host cost inflates the traced walls. Fails without a
+card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def _window(label: str, fn, out_dir: Path | None, card: str) -> None:
+    """Trace one warm call of fn; write its Chrome trace to out_dir if given."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    trace = ""
+    if out_dir is not None:
+        path = out_dir / f"patch_profile_{label}.json"
+        prof.export_chrome_trace(str(path))
+        trace = f", trace {path}"
+    if not events:
+        print(f"[profile] {label}: host wall {wall * 1e3:.3f} ms; device time not measured (no CUDA events) ({card})")
+        return
+    # one stream: device events (kernels, copies) overlap nothing, so their sum is the busy time
+    print(f"[profile] {label}: host wall {wall * 1e3:.3f} ms, {len(events)} device events, device busy "
+          f"{busy_us / 1e3:.3f} ms = {100 * busy_us / 1e6 / wall:.1f}% of the wall (idle "
+          f"{100 - 100 * busy_us / 1e6 / wall:.1f}%){trace} ({card})")
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+    for name, ts in top:
+        print(f"[profile]   {sum(ts) / 1e3:9.3f} ms in {len(ts):6d} launches: {name[:110]}")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--full", action="store_true", help="the real dataset's shape instead of bench.py's stack")
+    parser.add_argument("--out", default="outputs/profile")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_patch_profile.py: no CUDA card visible")
+    from tools.make_synth_stack import make_stack
+
+    from pdx_torch.pipelines import patch_discovery as pd
+    from pdx_torch.register.farneback import _chain_step_flow
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    if args.full:
+        U = make_stack(T=51, H=1024, W=1280)
+        cfg = pd.PatchDiscoveryConfig(write_artifacts=False, data_dir="unused")
+        label = "full"
+    else:
+        U = make_stack(T=51, H=512, W=640).astype(np.float64)
+        cfg = pd.PatchDiscoveryConfig(write_artifacts=False, data_dir="unused", skip=12, subsample=6)
+        label = "bench"
+    U.setflags(write=False)
+    _window(f"{label}_run", lambda: pd.run(cfg, U_raw=U, device=dev), None, card)  # its trace would be ~100 MB
+    U_pre = pd.preprocess_head(cfg, U, dev)
+    f32 = torch.float32
+    _window(f"{label}_one_flow", lambda: _chain_step_flow(U_pre[0], U_pre[1], f32=f32, flow_ds=2, kw={"refine": 1}),
+            out_dir, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

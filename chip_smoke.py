@@ -74,7 +74,34 @@ Phases, each of which exits non-zero on failure:
    128 frames: registration off (coefficients within 1e-10 of max|coef|)
    and on (1e-5 of max|coef|, the same kept support; registered frames
    within 5e-6), and the chain with ``flow_ds=2`` passed to both on
-   128 x 128 working frames (within 5e-6): the limits of the CPU tests.
+   128 x 128 working frames (within 5e-6): the limits of the CPU tests;
+6. ``[analyze]``: ``pipelines.analyze.run`` on the same stack read as 8-bit
+   grayscale (as ``load_images(mode="grayscale_u8")`` reads 16-bit
+   frames), default configuration (2x downsample, the 50-flow chain, a
+   51 x 39 x 50 working stack, six models, k = 1..10, two spatial
+   holdouts): warm wall (median of 3), ``[stage]`` lines from the port's
+   ``StageTimer`` (median of 3), one run each with robust regression and
+   with Model 7; one run writing the artifacts, whose keys are held to
+   ``pdx``'s schema (the figures are skipped without matplotlib, as ``pdx``
+   skips them); FIG4's rollouts on the card against the CPU (1e-9). Gates:
+   six (seven) results, every R2 and k-step metric finite, Models 1 and 2
+   equal, the best model one of the family, no kernel launched. Then the
+   card against the CPU on 12 x 128 x 128 frames: registration off (1e-9 of
+   max|coef|) and on (1e-5, the same supports), the same selected models;
+7. ``[transport]``: ``pipelines.transport.run`` on the uint16 stack,
+   default configuration (4x downsample, 50 pair flows as one float64
+   batch, a 13-term library of 50 x 256 x 320 rows, FISTA over three
+   alphas): warm wall (median of 3), ``[stage]`` lines, FISTA's iterations
+   and host syncs at ``pdx``'s alphas and at alphas that keep terms
+   active; gates: finite coefficients and R2 for every alpha, no kernel
+   launched. Then the card against the CPU on 8 x 220 x 220 frames (2
+   pyramid levels, as ``pdx``'s test): flows within 1e-9 px, coefficients
+   within 1e-6 of max|coef|, R2 within 1e-9.
+
+Before each phase from 2 on, the script waits (at most 700 s in all) until
+the card has that phase's peak memory and 1 GiB free, in case another
+process holds the card; after each phase it prints the phase's peak
+(``[memory]`` lines) and hands its cached blocks back to the card.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero.
@@ -144,6 +171,58 @@ def _time_ms(fn, reps: int = 15) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+GIB = 2**30
+# Device memory each phase reserves at its peak, in GiB, as its [memory] line printed it on the H100
+# (rounded up); before the phase, that and 1 GiB for the CUDA context and a margin must be free.
+PHASE_PEAK_GIB = {"the kernels": 4.7, "the KS-2D paths": 2.9, "the KS-2D card against the CPU": 0.5,
+                  "[patch]": 3.8, "[analyze]": 4.3, "[transport]": 7.7}
+WAIT_FOR_CARD_S = 700.0  # at most this long in all, waiting for other processes to free the card's memory
+_waited = [0.0]
+
+
+def _other_processes() -> str:
+    """The card's compute processes as nvidia-smi lists them (pid, used memory)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return "; ".join(out.splitlines()) or "none listed"
+
+
+def _await_card(phase: str, dev) -> None:
+    """Before a phase: wait, polling every 5 s and for at most WAIT_FOR_CARD_S
+    over the whole script, until the phase's peak and 1 GiB of the card's
+    memory are free (another process may be holding it). The phase then runs
+    whatever the wait found: an allocation it cannot make fails it."""
+    import torch
+
+    need = PHASE_PEAK_GIB[phase] + 1.0
+    free, total = torch.cuda.mem_get_info(dev)
+    if free >= need * GIB:
+        return
+    print(f"[memory] before {phase}: {free / GIB:.2f} of {total / GIB:.2f} GiB free, {need:.1f} needed; "
+          f"this process holds {torch.cuda.memory_reserved(dev) / GIB:.2f} GiB; compute processes: "
+          f"{_other_processes()}; waiting", flush=True)
+    t0 = time.perf_counter()
+    while free < need * GIB and _waited[0] + time.perf_counter() - t0 < WAIT_FOR_CARD_S:
+        time.sleep(5.0)
+        free = torch.cuda.mem_get_info(dev)[0]
+    _waited[0] += time.perf_counter() - t0
+    print(f"[memory] before {phase}: {free / GIB:.2f} GiB free after {time.perf_counter() - t0:.0f} s "
+          f"({_waited[0]:.0f} s waited in all)", flush=True)
+
+
+def _phase_memory(phase: str, dev) -> None:
+    """After a phase: print its peak device memory in this process, then hand
+    the allocator's cached blocks back to the card and reset the peaks."""
+    import torch
+
+    print(f"[memory] {phase}: peak {torch.cuda.max_memory_allocated(dev) / GIB:.3f} GiB allocated, "
+          f"{torch.cuda.max_memory_reserved(dev) / GIB:.3f} GiB reserved by this process", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
 
 
 def _scales(want: dict) -> dict:
@@ -556,9 +635,10 @@ def _patch_card_vs_cpu(dev) -> None:
         print(f"[small] {label}: registered frames on card and CPU apart by {apart:.1e} (limit 5e-6)")
 
 
-def _patch_phase(dev, card: str, counters: dict) -> None:
-    """Phase 5: the real-image patch ensemble at full size, its artifacts,
-    and the card against the CPU."""
+def _patch_phase(full, dev, card: str, counters: dict) -> None:
+    """Phase 5: the real-image patch ensemble at full size (``full``: the
+    51 x 1024 x 1280 uint16 stack), its artifacts, and the card against the
+    CPU."""
     import json as _json
     import tempfile
     from pathlib import Path
@@ -569,12 +649,8 @@ def _patch_phase(dev, card: str, counters: dict) -> None:
 
     from pdx_torch.pipelines.patch_discovery import PatchDiscoveryConfig, run
 
-    t0 = time.perf_counter()
-    full = make_stack(T=51, H=1024, W=1280)
-    print(f"[patch] made the 51 x 1024 x 1280 uint16 stack on the host in {time.perf_counter() - t0:.2f} s")
     _patch_run("real dataset's shape 51x1024x1280 uint16, default configuration", full,
                PatchDiscoveryConfig(write_artifacts=False, data_dir="unused"), dev, card, counters)
-    del full
     bench = make_stack(T=51, H=512, W=640).astype(np.float64)
     bench_cfg = PatchDiscoveryConfig(write_artifacts=False, data_dir="unused", skip=12, subsample=6)
     _patch_run("bench.py's stack 51x512x640 float64, skip 12, subsample 6", bench, bench_cfg, dev, card, counters)
@@ -597,7 +673,300 @@ def _patch_phase(dev, card: str, counters: dict) -> None:
     _patch_card_vs_cpu(dev)
 
 
+def _warm_walls(fn, counters: dict, label: str, reps: int = 3) -> tuple[list[float], object]:
+    """One warm-up call of fn, then reps calls timed on the host clock, each
+    ended by a synchronize, with every launch counter set to 0 before them:
+    (walls in s, the last result). Raises if a kernel was launched (the
+    real-image paths have none)."""
+    import torch
+
+    fn()
+    for c in counters.values():
+        c.launches = 0
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    moved = {n: c.launches for n, c in counters.items()}
+    if any(moved.values()):
+        raise AssertionError(f"{label}: this path launches no kernel, yet {moved}")
+    return walls, out
+
+
+def _stage_lines(label: str, run_with_timer, stages: tuple[str, ...], card: str, reps: int = 3) -> dict:
+    """Median over reps runs of each stage's seconds from the port's
+    StageTimer (each stage ended by a synchronize); prints one [stage] line
+    a stage and raises if one of ``stages`` is missing."""
+    from pdx_torch.utils.profiling import StageTimer
+
+    per_run = []
+    for _ in range(reps):
+        timer = StageTimer()
+        run_with_timer(timer)
+        per_run.append(dict(timer.stages))
+    missing = [s for s in stages if s not in per_run[0]]
+    if missing:
+        raise AssertionError(f"{label}: stages {missing} missing from the timer's {list(per_run[0])}")
+    med = {s: statistics.median(r[s] for r in per_run) for s in per_run[0]}
+    total = sum(med.values())
+    for s, t in med.items():
+        print(f"[stage] {label} {s}: {1e3 * t:.3f} ms ({100 * t / total:.1f}% of the stages' "
+              f"{1e3 * total:.3f} ms; median of {reps}) ({card})")
+    return med
+
+
+def _wall_text(walls: list[float]) -> str:
+    return f"{statistics.median(walls):.4f} s (median of {len(walls)}: {', '.join(f'{w:.4f}' for w in walls)})"
+
+
+ANALYZE_STAGES = ("denoise_normalize", "registration", "smooth_crop", "sliced_fields", "models_batched",
+                  "spatial_holdout", "best_rollout_bundle")
+ANALYZE_SMALL = dict(data_dir="unused", max_images=12, skip=10, subsample=4, rollout_steps=(1, 2, 3),
+                     write_artifacts=False)
+# pdx's artifact schema: pdx/io_host/artifacts.py:47-147 and the baseline at pdx/pipelines/analyze.py:644-664
+BEST_MODEL_KEYS = {
+    "generated_at", "selection", "train_frac", "name", "r2", "rmse", "mae", "nrmse", "corr", "resid_med_abs",
+    "one_step_rmse", "train_r2", "train_rmse", "train_nrmse", "train_corr", "train_one_step_rmse", "n_active",
+    "n_total", "equation", "terms", "coeffs", "spatial_holdout", "spatial_holdout_top_bottom", "rollout_time_test",
+    "rollout_space_test_left_right", "rollout_space_test_top_bottom",
+}
+COMPARISON_KEYS = {"generated_at", "train_frac", "space_train_frac", "rollout_steps", "use_robust_regression",
+                   "best_simple", "best_overall", "models"}
+COMPARISON_MODEL_KEYS = {"name", "r2_test", "rmse_test", "nrmse_test", "corr_test", "one_step_rmse", "n_active",
+                         "n_total", "equation", "terms", "coeffs", "rollout", "rollout_curve_test"}
+BASELINE_KEYS = {"selection", "name", "r2", "rmse", "nrmse", "corr", "one_step_rmse", "n_active", "n_total",
+                 "equation", "terms", "coeffs", "rollout_time_test"}
+
+
+def _analyze_gates(label: str, out: dict, n_models: int) -> None:
+    """n_models results, every R2 and k-step metric finite, Models 1 and 2
+    with equal coefficients (the reference's quirk), a known best model."""
+    import numpy as np
+
+    from pdx_torch.pipelines.analyze import MODEL7, MODELS
+
+    res = out["results"]
+    if len(res) != n_models:
+        raise AssertionError(f"{label}: {len(res)} results, expected {n_models}")
+    for r in res:
+        vals = [r["r2"], r["train_r2"]] + [v for m in r["rollout"].values() for v in m.values()]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{label}: {r['name']} has a metric that is not finite: r2 {r['r2']}, {r['rollout']}")
+    if not np.array_equal(res[0]["coeffs"], res[1]["coeffs"]):
+        raise AssertionError(f"{label}: Models 1 and 2 differ: {res[0]['coeffs']} vs {res[1]['coeffs']}")
+    if out["best_overall"]["name"] not in list(MODELS) + [MODEL7]:
+        raise AssertionError(f"{label}: best model {out['best_overall']['name']!r} is not a model of the family")
+
+
+def _analyze_small_card_vs_cpu(dev) -> None:
+    """analyze on the card against the CPU on 12 x 128 x 128 frames, each
+    model's reading printed. Registration off: Models 1-5 within 1e-10 of
+    max|coef|, Model 6 within 1e-9 (its 13 columns, u, u^2 and u^3 among
+    them, amplify the Gram's summation order: 1.2e-10 measured on the
+    H100). Registration on: 1e-5 and the same support (the chain's flows are
+    float32; 64 px working frames run the flow at full resolution on both).
+    The same selections."""
+    import numpy as np
+
+    from tools.make_synth_stack import make_stack
+
+    from pdx_torch.pipelines import analyze as an
+
+    U = (make_stack(T=12, H=128, W=128, seed=1) >> 8).astype(np.uint8)
+    for reg in (False, True):
+        cfg = an.AnalyzeConfig(registration=reg, **ANALYZE_SMALL)
+        on_card, on_cpu = (an.run(cfg, U_raw=U, device=d) for d in (dev, "cpu"))
+        readings = []
+        for a, b in zip(on_card["results"], on_cpu["results"]):
+            tol = 1e-5 if reg else 1e-9 if a["name"].startswith("Model 6") else 1e-10
+            cb = np.asarray(b["coeffs"])
+            apart = np.abs(np.asarray(a["coeffs"]) - cb).max() / np.abs(cb).max()
+            readings.append(f"{a['name'].split(':')[0]} {apart:.1e} (limit {tol:g})")
+            if not (apart < tol and a["n_active"] == b["n_active"]):
+                raise AssertionError(f"analyze registration={reg} {a['name']}: card and CPU apart by {apart:.1e} of "
+                                     f"max|coef| (limit {tol:g}), n_active {a['n_active']} vs {b['n_active']}")
+        picks = [(on_card[k]["name"], on_cpu[k]["name"]) for k in ("best_simple", "best_overall")]
+        if any(x != y for x, y in picks):
+            raise AssertionError(f"analyze registration={reg}: the card selects {picks} (card, CPU)")
+        print(f"[small] analyze registration={reg} {U.shape}: coefficients apart by, of max|coef|: "
+              f"{'; '.join(readings)}; same supports; best simple {picks[0][0]!r}, best overall {picks[1][0]!r} "
+              f"on both")
+
+
+def _analyze_phase(full_u8, dev, card: str, counters: dict) -> None:
+    """Phase 6: the analyze pipeline at the real dataset's shape (51 x 1024
+    x 1280 read as 8-bit grayscale, default configuration), the robust and
+    Model 7 runs, the artifacts, FIG4's rollouts on the card against the
+    CPU, and the card against the CPU at a small size."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from pdx_torch.pipelines import analyze as an
+    from pdx_torch.report.figures import fig4_snapshot_data
+
+    label = "analyze 51x1024x1280 grayscale_u8, default configuration"
+    cfg = an.AnalyzeConfig(data_dir="unused", write_artifacts=False)
+    walls, out = _warm_walls(lambda: an.run(cfg, U_raw=full_u8, device=dev), counters, label)
+    _analyze_gates(label, out, 6)
+    b = out["best_overall"]
+    print(f"[analyze] {label}: warm wall {_wall_text(walls)}, working stack {out['working_shape']}, best overall "
+          f"{b['name']!r} (test R2 {b['r2']:.6f}, k10 test nRMSE {b['rollout']['k10_test']['nrmse']:.6f}), best simple "
+          f"{out['best_simple']['name']!r}; {b['equation']} ({card})")
+    for r in out["results"]:
+        print(f"[analyze]   {r['name']}: test R2 {r['r2']:.6f}, one-step RMSE {r['one_step_rmse']:.6e}, "
+              f"k10 test nRMSE {r['rollout']['k10_test']['nrmse']:.6f}, {r['n_active']}/{r['n_total']} active")
+    stages = _stage_lines("analyze", lambda t: an.run(cfg, U_raw=full_u8, timer=t, device=dev), ANALYZE_STAGES, card)
+    print(f"[stage] analyze registration: {1e3 * stages['registration'] / 50:.3f} ms a flow (50 chained flows of "
+          f"(512, 640) frames, each computed at (256, 320)) ({card})")
+
+    for what, kw, n_models in (("robust_regression=True", dict(robust_regression=True), 6),
+                               ("include_fourth_order=True", dict(include_fourth_order=True), 7)):
+        one = dataclasses.replace(cfg, **kw)
+        w, o = _warm_walls(lambda: an.run(one, U_raw=full_u8, device=dev), counters, f"analyze {what}", reps=1)
+        _analyze_gates(f"analyze {what}", o, n_models)
+        print(f"[analyze] {what}: warm wall {w[0]:.4f} s (one run), best overall {o['best_overall']['name']!r}, "
+              f"test R2 {o['best_overall']['r2']:.6f} ({card})")
+
+    with tempfile.TemporaryDirectory() as d:
+        an.run(dataclasses.replace(cfg, write_artifacts=True, output_dir=d), U_raw=full_u8, device=dev)
+        files = {n: json.loads((Path(d) / n).read_text()) for n in
+                 ("best_model.json", "models_comparison.json", "best_model_baseline.json")}
+        for name, got, want in (("best_model.json", files["best_model.json"], BEST_MODEL_KEYS),
+                                ("models_comparison.json", files["models_comparison.json"], COMPARISON_KEYS),
+                                ("best_model_baseline.json", files["best_model_baseline.json"], BASELINE_KEYS)):
+            if set(got) != want:
+                raise AssertionError(f"{name}: keys {sorted(set(got) ^ want)} differ from pdx's schema")
+        models = files["models_comparison.json"]["models"]
+        if len(models) != 6 or any(set(m) != COMPARISON_MODEL_KEYS for m in models):
+            raise AssertionError(f"models_comparison.json: models' keys differ from pdx's schema: {models[0].keys()}")
+        pngs = sorted(p.name for p in Path(d).glob("*.png"))
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        figs = (f"figures {pngs}" if has_mpl else
+                "figures skipped: no matplotlib on this machine, as pdx skips them (drawn in the CPU tests)")
+        print(f"[analyze] artifacts: best_model.json, models_comparison.json, best_model_baseline.json match pdx's "
+              f"schema; {figs}")
+
+    # FIG4's rollouts and error maps, the device work outside the pipeline's figure guard, called as the
+    # pipeline calls it
+    u = an.sliced_fields(cfg, an.preprocess(cfg, full_u8, device=dev))[0]["u"]
+    test_sl = an._split_slices(u.shape[0], cfg.train_frac)[1]
+    kw = dict(test_start=test_sl.start, test_stop=test_sl.stop, dt=cfg.dt, dx=cfg.dx, dy=cfg.dy,
+              k_default=cfg.rollout_steps[-1] if cfg.rollout_steps else 10)
+    got = fig4_snapshot_data(u, out["results"], **kw)
+    want = fig4_snapshot_data(u.cpu(), out["results"], **kw)
+    ms = _host_ms(lambda: fig4_snapshot_data(u, out["results"], **kw), 3)
+    maps_apart = float(np.abs(got["maps"] - want["maps"]).max() / np.abs(want["maps"]).max())
+    # a horizon with no valid start in the test split is NaN on both (pdx's NaN rows)
+    curves_apart = max(float(np.nanmax(np.abs(got[c] - want[c]) / np.abs(want[c]))) for c in ("curve4", "curve3"))
+    same_nan = all(np.array_equal(np.isnan(got[c]), np.isnan(want[c])) for c in ("curve4", "curve3"))
+    if not (got["ks"] == want["ks"] and maps_apart < 1e-6 and curves_apart < 1e-9 and same_nan
+            and np.isfinite(got["maps"]).all()):
+        raise AssertionError(f"fig4_snapshot_data: horizons {got['ks']} vs {want['ks']}; card and CPU apart by "
+                             f"{maps_apart:.1e} (error maps, of max; limit 1e-6) and {curves_apart:.1e} (nRMSE "
+                             f"curves, relative; limit 1e-9); NaN horizons the same {same_nan}")
+    print(f"[analyze] fig4_snapshot_data (Models 4 and 3, horizons {got['ks']}, {tuple(u.shape)}): {ms:.3f} ms on "
+          f"the card; card and CPU apart by {maps_apart:.1e} of max (float32 error maps, limit 1e-6) and "
+          f"{curves_apart:.1e} relative (nRMSE curves, limit 1e-9) ({card})")
+    print("[analyze] for scale: pdx's own TPU records are 9.2 s warm headline and 3.97 s instrumented "
+          "(docs/RESULTS.md:386), the reference's numbers, not this port's")
+    _analyze_small_card_vs_cpu(dev)
+
+
+TRANSPORT_STAGES = ("ship_normalize_resize", "pair_flows", "discover_lasso_sweep", "host_readback")
+TRANSPORT_ACTIVE_ALPHAS = (1e-6, 1e-5, 1e-4)  # at the small size pdx's alphas zero every term
+
+
+def _transport_small_card_vs_cpu(dev) -> None:
+    """transport on the card against the CPU on 8 frames of 220 x 220 (4x
+    downsampled, 2 pyramid levels, as pdx's own test): float64 flows within
+    1e-9 px; coefficients within 1e-6 of max|coef| and R2 within 1e-9, at
+    pdx's alphas and at alphas that keep terms active (FISTA stops where a
+    step falls under 1e-8, so card and CPU may stop an iteration apart)."""
+    import numpy as np
+    import torch
+
+    from tools.make_synth_stack import make_stack
+
+    from pdx_torch.pipelines import transport as tp
+
+    U = make_stack(T=8, H=220, W=220, seed=3)
+    cfg = tp.TransportConfig(data_dir="unused", max_images=8, flow_levels=2, write_artifacts=False)
+    flows = []
+    for d in (dev, "cpu"):
+        images = torch.as_tensor(U, device=d).to(torch.float64)
+        flows.append([f.cpu() for f in tp._pair_flows(cfg, tp._normalized_pairs_input(cfg, images / images.max())[1])])
+    flow_apart = max(float((a - b).abs().max()) for a, b in zip(*flows))
+    if not flow_apart < 1e-9:
+        raise AssertionError(f"transport pair flows: card and CPU apart by {flow_apart:.1e} px (limit 1e-9)")
+    for alphas in (cfg.alphas, TRANSPORT_ACTIVE_ALPHAS):
+        one = dataclasses.replace(cfg, alphas=alphas)
+        on_card, on_cpu = (tp.run(one, U_raw=U, device=d)["results"] for d in (dev, "cpu"))
+        scale = max(max(np.abs(r["coefficients"]).max() for r in on_cpu.values()), 1e-300)
+        apart = max(np.abs(on_card[a]["coefficients"] - on_cpu[a]["coefficients"]).max() for a in on_cpu) / scale
+        r2_apart = max(abs(on_card[a]["r2"] - on_cpu[a]["r2"]) for a in on_cpu)
+        if not (apart < 1e-6 and r2_apart < 1e-9):
+            raise AssertionError(f"transport alphas {alphas}: card and CPU apart by {apart:.1e} of max|coef| "
+                                 f"(limit 1e-6), R2 by {r2_apart:.1e} (limit 1e-9)")
+        active = [len(r["active_terms"]) for r in on_card.values()]
+        print(f"[small] transport {U.shape} alphas {alphas}: flows apart by {flow_apart:.1e} px (limit 1e-9), "
+              f"coefficients by {apart:.1e} of max|coef| (limit 1e-6), R2 by {r2_apart:.1e} (limit 1e-9); "
+              f"active terms {active}")
+
+
+def _transport_phase(full, dev, card: str, counters: dict) -> None:
+    """Phase 7: the transport pipeline at the real dataset's shape (51 x
+    1024 x 1280 uint16, default configuration: 50 pair flows at 256 x 320,
+    a 13-term library of 50 x 256 x 320 rows, FISTA over three alphas), its
+    stages, FISTA's iterations, and the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from pdx_torch.io_host.images import device_stack
+    from pdx_torch.pipelines import transport as tp
+    from pdx_torch.solve.lasso import CHECK_EVERY
+
+    label = "transport 51x1024x1280 uint16, default configuration"
+    cfg = tp.TransportConfig(data_dir="unused", write_artifacts=False)
+    walls, out = _warm_walls(lambda: tp.run(cfg, U_raw=full, device=dev), counters, label)
+    for a, r in out["results"].items():
+        if not (np.isfinite(r["coefficients"]).all() and math.isfinite(r["r2"])):
+            raise AssertionError(f"{label}: alpha {a} gives coefficients {r['coefficients']}, R2 {r['r2']}")
+    fits = "; ".join(f"alpha {a}: R2 {r['r2']:.6f}, {len(r['active_terms'])}/13 active" for a, r in out["results"].items())
+    print(f"[transport] {label}: warm wall {_wall_text(walls)}, {out['n_samples']} samples, mean flow speed "
+          f"{out['mean_flow_speed']:.6f} px/frame; {fits} ({card})")
+    _stage_lines("transport", lambda t: tp.run(cfg, U_raw=full, timer=t, device=dev), TRANSPORT_STAGES, card)
+
+    # the library and Lasso sweep alone, on this run's flows: FISTA's iterations per alpha and its host
+    # syncs, at pdx's alphas and at alphas that keep terms active (there FISTA iterates)
+    images = device_stack(full, torch.float64, device=dev)
+    imgs_ds, imgs_n = tp._normalized_pairs_input(cfg, images / images.max())
+    fu, fv = tp._pair_flows(cfg, imgs_n)
+    kw = dict(dt=cfg.dt, dx=cfg.dx, dy=cfg.dy, spatial_smooth=cfg.spatial_smooth)
+    for alpha_list in (cfg.alphas, TRANSPORT_ACTIVE_ALPHAS):
+        alphas = torch.as_tensor(alpha_list, dtype=torch.float64, device=dev)
+        res = tp._discover(imgs_ds, fu, fv, alphas, **kw)
+        n_iter, syncs, active = res[-2].tolist(), res[-1], (res[0].abs() > 1e-10).sum(dim=1).tolist()
+        ms = _host_ms(lambda: tp._discover(imgs_ds, fu, fv, alphas, **kw), 3)
+        print(f"[transport] alphas {alpha_list}: FISTA iterations {n_iter} (max_iter 5000), active terms {active}; "
+              f"library, Gram and sweep {ms:.3f} ms (median of 3), {syncs} host syncs in the sweep (one for the step "
+              f"size, one a stop check after iterations 1, 2, 4, ... then every {CHECK_EVERY}) ({card})")
+    print("[transport] for scale: pdx's own TPU record is 1.27 s warm (docs/RESULTS.md:387), the reference's "
+          "number, not this port's")
+    _transport_small_card_vs_cpu(dev)
+
+
 def main() -> int:
+    import os
+
+    # grow the allocator's segments in place rather than caching many fixed ones: less memory held for
+    # nothing between phases, on a card other processes may share
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import numpy as np
     import torch
 
@@ -615,6 +984,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[memory] at start: {free / GIB:.2f} of {total / GIB:.2f} GiB free; compute processes: "
+          f"{_other_processes()}")
 
     # 1. build
     t0 = time.perf_counter()
@@ -622,7 +994,10 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.2f} s (sources {_build.source_hash()})")
     _print_occupancy(_build.library(), kg, kb, dev, card)
 
+    _phase_memory("build", dev)
+
     # 2. kernels vs plain versions on the card
+    _await_card("the kernels", dev)
     kw3 = dict(block_t=3, block_x=8, block_y=8)
     blocks = (3, 8, 8)
     lib = _build.library()
@@ -735,8 +1110,10 @@ def main() -> int:
                     raise AssertionError(
                         f"{small} (bare launch {a_bare:.4f} ms) is not faster than {big} at p={p} ({b_bare:.4f} ms)")
         del U, Ut
+    _phase_memory("the kernels", dev)
 
     # 3. the main paths at full size; counters set to 0 before each run
+    _await_card("the KS-2D paths", dev)
     base = dict(grid_search=True)
     perturbed = dict(
         method="blockwise", dictionary="rich", solver="pallas", perturbation="N5_shifts_noise",
@@ -796,8 +1173,10 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched on the main paths")
     _run_branch(dev, card, {n: s["counter"] for n, s in specs.items()})
     _time_branch_stages(dev, card)
+    _phase_memory("the KS-2D paths", dev)
 
     # 4. the card against the CPU on a small input
+    _await_card("the KS-2D card against the CPU", dev)
     small = dict(grid_search=True, Nx=32, Ny=32, n_seconds=0.2)
     for label, kw in {
         "pallas": dict(solver="pallas"),
@@ -813,9 +1192,29 @@ def main() -> int:
         np.testing.assert_allclose(on_card, on_cpu, rtol=1e-6, atol=atol, err_msg=label)
         print(f"[small] {label}: card {on_card.tolist()} vs CPU {on_cpu.tolist()}")
     _branch_card_vs_cpu(dev)
+    _phase_memory("the KS-2D card against the CPU", dev)
 
-    # 5. the real-image patch ensemble
-    _patch_phase(dev, card, {n: s["counter"] for n, s in specs.items()})
+    # 5-7. the real-image pipelines, on one stack of the real dataset's shape
+    from tools.make_synth_stack import make_stack
+
+    counters = {n: s["counter"] for n, s in specs.items()}
+    t0 = time.perf_counter()
+    full = make_stack(T=51, H=1024, W=1280)
+    full.setflags(write=False)  # a read-only stack is shipped to the card once (io_host.images.device_stack)
+    print(f"[patch] made the 51 x 1024 x 1280 uint16 stack on the host in {time.perf_counter() - t0:.2f} s")
+    _await_card("[patch]", dev)
+    _patch_phase(full, dev, card, counters)
+    _phase_memory("[patch]", dev)
+    full_u8 = (full >> 8).astype(np.uint8)  # what load_images(mode="grayscale_u8") makes of 16-bit frames
+    full_u8.setflags(write=False)
+    _await_card("[analyze]", dev)
+    _analyze_phase(full_u8, dev, card, counters)
+    _phase_memory("[analyze]", dev)
+    del full_u8
+    _await_card("[transport]", dev)
+    _transport_phase(full, dev, card, counters)
+    _phase_memory("[transport]", dev)
+    del full
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -8,6 +8,11 @@ Usage:
   python -m pdx_torch ks2d-bench-json [...]
   python -m pdx_torch patch-discover --data-dir DIR [--no-registration]
       [--register-mode auto|compose|chain|to_first] [--patch 21] [...]
+  python -m pdx_torch analyze --data-dir DIR [--output-dir OUT] [--robust]
+      [--stabilize] [--no-registration] [--register-mode ...] [--include-fourth-order]
+      [--skip 25] [--subsample 12] [--profile] [...]
+  python -m pdx_torch transport --data-dir DIR [--output-dir OUT] [--max-images 51]
+      [--downsample 4] [--quick]
 
 The flags are ``pdx``'s (for ks2d-bench one per ``Ks2dBenchConfig``
 field), plus ``--device`` (default ``cuda``). The run uses the CUDA card and
@@ -92,7 +97,25 @@ def cmd_patch_discover(argv: list[str]) -> int:
     return cmd_patch_discover(argv)
 
 
-COMMANDS = {"ks2d-bench": cmd_ks2d_bench, "ks2d-bench-json": cmd_json, "patch-discover": cmd_patch_discover}
+def cmd_analyze(argv: list[str]) -> int:
+    from pdx_torch.pipelines.analyze import cmd_analyze
+
+    return cmd_analyze(argv)
+
+
+def cmd_transport(argv: list[str]) -> int:
+    from pdx_torch.pipelines.transport import cmd_transport
+
+    return cmd_transport(argv)
+
+
+COMMANDS = {
+    "ks2d-bench": cmd_ks2d_bench,
+    "ks2d-bench-json": cmd_json,
+    "patch-discover": cmd_patch_discover,
+    "analyze": cmd_analyze,
+    "transport": cmd_transport,
+}
 
 
 def main(argv: list[str] | None = None) -> int:

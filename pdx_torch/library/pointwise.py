@@ -33,3 +33,10 @@ def build_pointwise_dataset(
     p = terms.shape[0]
     X = terms.reshape(p, -1)[:, idx].T
     return X, y
+
+
+def finite_row_weights(X: Tensor, y: Tensor) -> Tensor:
+    """1.0 where the row of X and y is finite, else 0.0: the static-shape
+    stand-in for the reference's boolean row filter."""
+    ok = torch.isfinite(X).all(dim=1) & torch.isfinite(y)
+    return ok.to(X.dtype)

@@ -81,11 +81,13 @@ def _stridge_iterations(
 
     ``alpha`` and ``threshold`` are floats or tensors of one batch shape B;
     ``bs`` is then (*B, p) (or broadcasts to it) and every solve is batched.
-    ``init_mask`` restricts the fit to a column subset from the start.
+    ``init_mask`` restricts the fit to a column subset from the start; its
+    leading axes are a batch too, so (M, p) masks over one set of
+    statistics fit M models at once (``pdx`` vmaps over the masks).
     """
     batch = torch.as_tensor(threshold).shape
-    mask0 = torch.ones_like(bs) if init_mask is None else init_mask.to(Gs.dtype)
-    m0 = mask0.expand(torch.broadcast_shapes(batch + (1,), bs.shape))
+    mask0 = torch.ones_like(bs) if init_mask is None else init_mask.to(device=Gs.device, dtype=Gs.dtype)
+    m0 = mask0.expand(torch.broadcast_shapes(batch + (1,), bs.shape, mask0.shape))
 
     def solve_fn(m: Tensor) -> Tensor:
         return masked_ridge_solve(Gs, bs, m, alpha)

@@ -1,4 +1,5 @@
-"""pdx_torch.library (pointwise, dictionaries, blockwise) and
+"""pdx_torch.library (pointwise, dictionaries, blockwise; the real-image
+term fields of Models 1-7) and
 pdx_torch.validate.rollout against their pdx counterparts, float64.
 
 Same numpy inputs and the same operation order in both packages: the
@@ -108,3 +109,39 @@ def test_rollout_curve_named(names, coeffs):
     want = jroll.rollout_rmse_curve_named(jnp.asarray(U.numpy()), coeffs, names, 20, DT, dx, dy)
     assert got.shape == (20,)
     _close(got, want, 1e-10)
+
+
+def test_real_image_term_fields(stack):
+    """Models 1-6's fields (reflect-101, x = columns), within 1e-12 of each
+    field's largest value; the term sets as in pdx."""
+    got = tdict.real_image_term_fields(torch.from_numpy(stack), 0.1, 0.2)
+    want = jdict.real_image_term_fields(jnp.asarray(stack), 0.1, 0.2)
+    assert list(got) == list(want)
+    for k in want:
+        _close(got[k], want[k])
+    assert tdict.REAL_MODEL_TERMS == jdict.REAL_MODEL_TERMS
+    assert tdict.REGISTRATION_STUDY_TERMS == jdict.REGISTRATION_STUDY_TERMS
+    names = tdict.REAL_MODEL_TERMS[6]
+    _close(tdict.stack_terms(got, names), jdict.stack_terms(want, names))
+
+
+@pytest.mark.parametrize("shape", [(6, 16, 20), (2, 3, 9, 11)])
+def test_fourth_order_term_fields(shape):
+    """Model 7's 25 fields, leading axes a batch: the edge-padded 1st and
+    2nd derivatives and the periodic 3rd and 4th (notebook 02's quirk)."""
+    U = np.random.default_rng(1).uniform(-1, 1, size=shape)
+    got = tdict.fourth_order_term_fields(torch.from_numpy(U), 0.1, 0.2)
+    want = jdict.fourth_order_term_fields(jnp.asarray(U), 0.1, 0.2)
+    assert list(got) == list(want) == tdict.FOURTH_ORDER_TERMS == jdict.FOURTH_ORDER_TERMS
+    for k in want:
+        _close(got[k], want[k])
+    assert tdict.FOURTH_ORDER_DISPLAY == jdict.FOURTH_ORDER_DISPLAY
+
+
+def test_finite_row_weights():
+    X = np.random.default_rng(2).normal(size=(8, 3))
+    y = np.arange(8.0)
+    X[1, 2], X[4, 0], y[6] = np.nan, np.inf, -np.inf
+    got = tpw.finite_row_weights(torch.from_numpy(X), torch.from_numpy(y))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jpw.finite_row_weights(jnp.asarray(X), jnp.asarray(y))))
+    assert got.dtype == torch.float64 and got.sum() == 5

@@ -1,7 +1,7 @@
 """pdx_torch and chip_smoke.py must never import jax (nor pdx, whose
 __init__ imports jax): neither on import nor while a run is under way (the
-KS-2D dataset / regression branch, and the patch ensemble with registration
-on)."""
+KS-2D dataset / regression branch, the patch ensemble and analyze with
+registration on, transport)."""
 
 import os
 import subprocess
@@ -33,6 +33,19 @@ out = patch_run(PatchDiscoveryConfig(data_dir="unused", max_images=12, skip=4, s
                                      samples_per_patch=40, rt=1, rs=2, deg=2, write_artifacts=False),
                 U_raw=make_stack(T=12, H=96, W=96), device="cpu")  # registration on: the Farneback chain
 assert out["n_patches"] > 0 and np.isfinite(out["patch_coeffs"]).all(), out
+import pdx_torch.pipelines.analyze, pdx_torch.pipelines.transport, pdx_torch.solve.lasso, pdx_torch.validate.holdout
+import pdx_torch.validate.selection, pdx_torch.validate.rollout, pdx_torch.report.figures, pdx_torch.report.render_cache
+import pdx_torch.utils.profiling, pdx_torch.library.dictionaries, pdx_torch.library.pointwise, pdx_torch.ops.fd
+from pdx_torch.pipelines.analyze import AnalyzeConfig, run as analyze_run
+stack = make_stack(T=8, H=96, W=96)
+out = analyze_run(AnalyzeConfig(data_dir="unused", max_images=8, skip=4, subsample=4, rollout_steps=(1, 2),
+                                include_fourth_order=True, write_artifacts=False), U_raw=(stack >> 8).astype(np.uint8),
+                  device="cpu")  # registration on: the chain
+assert len(out["results"]) == 7 and np.isfinite(out["best_overall"]["r2"]), out
+from pdx_torch.pipelines.transport import TransportConfig, run as transport_run
+out = transport_run(TransportConfig(data_dir="unused", max_images=8, flow_levels=2, write_artifacts=False),
+                    U_raw=stack, device="cpu")
+assert all(np.isfinite(r["r2"]) for r in out["results"].values()), out
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "pdx.")) or m == "pdx")
 assert not bad, bad
 print("clean")

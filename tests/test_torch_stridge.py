@@ -162,3 +162,30 @@ def test_threshold_loop_stops_at_the_fixed_point():
     for k in (len(calls), 25, 100):
         again = tst.stridge_from_stats(ts, alpha=1e-3, threshold=0.05, max_iter=k)
         assert torch.equal(again.mask, m) and torch.equal(again.coeffs, c / (_scale + 1e-12))
+
+
+@pytest.mark.parametrize("threshold", [1e-5, 0.3])
+def test_batched_init_masks_match_pdx_vmap(threshold):
+    """analyze's six model masks over one 13-column Gram, as one (6, 13)
+    batch of initial masks with a scalar threshold, against pdx's
+    jax.vmap over the masks: within 1e-10 of max|coef|, masks equal."""
+    import jax
+
+    from pdx_torch.pipelines.analyze import MODELS
+    from pdx_torch.validate.rollout import ANALYZE13
+
+    X, y, _ = make_problem(p=13, sparsity=6, seed=7)
+    masks = np.array([[1.0 if n in names else 0.0 for n in ANALYZE13] for names in MODELS.values()])
+    ts, js = _both_stats(X, y)
+    got = tst.stridge_from_stats(ts, alpha=0.01, threshold=threshold, max_iter=20, init_mask=torch.from_numpy(masks))
+
+    def one(m):
+        r = jst.stridge_from_stats(js, alpha=0.01, threshold=threshold, max_iter=20, init_mask=m)
+        return r.coeffs, r.mask
+
+    want_c, want_m = jax.vmap(one)(jnp.asarray(masks))
+    assert got.coeffs.shape == (6, 13)
+    want_c = np.asarray(want_c)
+    np.testing.assert_allclose(got.coeffs.numpy(), want_c, rtol=0, atol=1e-10 * np.abs(want_c).max())
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want_m))
+    assert np.all(got.coeffs.numpy()[masks == 0] == 0)

@@ -1,15 +1,21 @@
-"""Profile the port's patch ensemble on one CUDA card.
+"""Profile the port's real-image pipelines on one CUDA card.
 
-    python tools/torch_patch_profile.py [--full] [--out DIR]
+    python tools/torch_patch_profile.py [--pipeline patch|analyze|transport] [--full] [--out DIR]
 
-Runs ``pdx_torch.pipelines.patch_discovery.run`` on ``bench.py``'s stack
-(``make_stack(51, 512, 640)`` as float64, skip 12, subsample 6; ``--full``:
-the real dataset's 51 x 1024 x 1280 uint16 with the default configuration),
-warms it up, then traces one run and one registration flow with
-``torch.profiler`` (CPU and CUDA activities). Prints, per traced window:
-the host wall, the CUDA kernels launched, their summed device time, the
-device's busy and idle share of the wall, and the ten costliest kernels;
-writes the one flow's Chrome trace to ``--out`` (default ``outputs/profile/``).
+``patch`` (the default) runs ``pdx_torch.pipelines.patch_discovery.run`` on
+``bench.py``'s stack (``make_stack(51, 512, 640)`` as float64, skip 12,
+subsample 6; ``--full``: the real dataset's 51 x 1024 x 1280 uint16 with the
+default configuration), warms it up, then traces one run and one
+registration flow. ``analyze`` and ``transport`` trace one warm run of
+their pipeline at the real dataset's shape and default configuration
+(``analyze`` reads the frames as 8-bit grayscale, as ``load_images(mode=
+"grayscale_u8")`` does); ``transport`` also traces its pair flows and its
+library + Lasso sweep alone. Tracing is ``torch.profiler`` (CPU and CUDA
+activities). Prints, per traced window: the host wall, the CUDA kernels
+launched, their summed device time, the device's busy and idle share of the
+wall, and the ten costliest kernels; writes the Chrome trace of the one
+flow (patch) or of the sweep (transport) to ``--out`` (default
+``outputs/profile/``).
 The profiler's own host cost inflates the traced walls. Fails without a
 card.
 """
@@ -41,7 +47,7 @@ def _window(label: str, fn, out_dir: Path | None, card: str) -> None:
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     trace = ""
     if out_dir is not None:
-        path = out_dir / f"patch_profile_{label}.json"
+        path = out_dir / f"profile_{label}.json"
         prof.export_chrome_trace(str(path))
         trace = f", trace {path}"
     if not events:
@@ -64,7 +70,8 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--full", action="store_true", help="the real dataset's shape instead of bench.py's stack")
+    parser.add_argument("--pipeline", choices=["patch", "analyze", "transport"], default="patch")
+    parser.add_argument("--full", action="store_true", help="patch: the real dataset's shape instead of bench.py's stack")
     parser.add_argument("--out", default="outputs/profile")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -80,6 +87,30 @@ def main() -> int:
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
+    if args.pipeline == "analyze":
+        from pdx_torch.pipelines import analyze as an
+
+        U8 = (make_stack(T=51, H=1024, W=1280) >> 8).astype(np.uint8)
+        U8.setflags(write=False)
+        cfg = an.AnalyzeConfig(data_dir="unused", write_artifacts=False)
+        _window("analyze_run", lambda: an.run(cfg, U_raw=U8, device=dev), None, card)
+        return 0
+    if args.pipeline == "transport":
+        from pdx_torch.io_host.images import device_stack
+        from pdx_torch.pipelines import transport as tp
+
+        U = make_stack(T=51, H=1024, W=1280)
+        U.setflags(write=False)
+        cfg = tp.TransportConfig(data_dir="unused", write_artifacts=False)
+        _window("transport_run", lambda: tp.run(cfg, U_raw=U, device=dev), None, card)
+        images = device_stack(U, torch.float64, device=dev)
+        imgs_ds, imgs_n = tp._normalized_pairs_input(cfg, images / images.max())
+        fu, fv = tp._pair_flows(cfg, imgs_n)
+        alphas = torch.as_tensor(cfg.alphas, dtype=torch.float64, device=dev)
+        _window("transport_pair_flows", lambda: tp._pair_flows(cfg, imgs_n), None, card)
+        _window("transport_discover", lambda: tp._discover(
+            imgs_ds, fu, fv, alphas, dt=cfg.dt, dx=cfg.dx, dy=cfg.dy, spatial_smooth=cfg.spatial_smooth), out_dir, card)
+        return 0
     if args.full:
         U = make_stack(T=51, H=1024, W=1280)
         cfg = pd.PatchDiscoveryConfig(write_artifacts=False, data_dir="unused")

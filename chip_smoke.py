@@ -96,7 +96,27 @@ Phases, each of which exits non-zero on failure:
    active; gates: finite coefficients and R2 for every alpha, no kernel
    launched. Then the card against the CPU on 8 x 220 x 220 frames (2
    pyramid levels, as ``pdx``'s test): flows within 1e-9 px, coefficients
-   within 1e-6 of max|coef|, R2 within 1e-9.
+   within 1e-6 of max|coef|, R2 within 1e-9;
+8. ``[patch_sindy]``: ``pipelines.patch_sindy.run`` on the same stack read
+   as 8-bit and scaled by 1/255 (as its TIFF path reads frames; 30 patches
+   of 256 px): the default configuration (no registration; warm wall,
+   median of 3), the per-patch optical flow (compose path, flows at
+   64 x 64), ECC (30 patches as one batch, 50 host steps) and frame scope
+   (one warm run each), with ``[stage]`` lines from the port's
+   ``StageTimer``, and the ECC iterations a step; gates: 30 patches, finite
+   coefficients, 0 < average quality <= 1 for the registered schedules, no
+   kernel launched. Then the card against the CPU on 6 x 96 x 96 frames,
+   every schedule, at the CPU tests' limits, and the batched ECC's
+   iterations;
+9. ``[improved_registration]``: ``pipelines.improved_registration.run`` on
+   the uint16 stack, default configuration (the Farnebäck and DIS chains,
+   three quality sweeps of 50 float64 pairs at 1024 x 1280, a 49 x 80 x 101
+   working stack): warm wall (median of 3 if a run takes under 10 s, else
+   one run) and ``[stage]`` lines; gates: finite coefficients, R2 and
+   quality metrics, the working shape, a selected method, no kernel
+   launched. Then the card against the CPU on 6 x 96 x 96 frames (the same
+   method, flow magnitudes within 1e-6, coefficients within 1e-5 of
+   max|coef|), and ``dis_flow`` twice on the card, bitwise equal.
 
 Before each phase from 2 on, the script waits (at most 700 s in all) until
 the card has that phase's peak memory and 1 GiB free, in case another
@@ -177,7 +197,8 @@ GIB = 2**30
 # Device memory each phase reserves at its peak, in GiB, as its [memory] line printed it on the H100
 # (rounded up); before the phase, that and 1 GiB for the CUDA context and a margin must be free.
 PHASE_PEAK_GIB = {"the kernels": 4.7, "the KS-2D paths": 2.9, "the KS-2D card against the CPU": 0.5,
-                  "[patch]": 3.8, "[analyze]": 4.3, "[transport]": 7.7}
+                  "[patch]": 3.8, "[analyze]": 4.3, "[transport]": 7.7, "[patch_sindy]": 8.3,
+                  "[improved_registration]": 18.4}
 WAIT_FOR_CARD_S = 700.0  # at most this long in all, waiting for other processes to free the card's memory
 _waited = [0.0]
 
@@ -673,14 +694,15 @@ def _patch_phase(full, dev, card: str, counters: dict) -> None:
     _patch_card_vs_cpu(dev)
 
 
-def _warm_walls(fn, counters: dict, label: str, reps: int = 3) -> tuple[list[float], object]:
-    """One warm-up call of fn, then reps calls timed on the host clock, each
-    ended by a synchronize, with every launch counter set to 0 before them:
-    (walls in s, the last result). Raises if a kernel was launched (the
-    real-image paths have none)."""
+def _warm_walls(fn, counters: dict, label: str, reps: int = 3, warm: bool = True) -> tuple[list[float], object]:
+    """One warm-up call of fn (unless ``warm`` is False), then reps calls
+    timed on the host clock, each ended by a synchronize, with every launch
+    counter set to 0 before them: (walls in s, the last result). Raises if a
+    kernel was launched (the real-image paths have none)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     for c in counters.values():
         c.launches = 0
     walls = []
@@ -961,6 +983,209 @@ def _transport_phase(full, dev, card: str, counters: dict) -> None:
     _transport_small_card_vs_cpu(dev)
 
 
+PATCH_SINDY_STAGES = ("denoise", "extract_patches", "registration", "discovery")
+IR_STAGES = ("denoise_normalize", "farneback_chain", "dis_chain", "quality_before", "quality_farneback", "quality_dis",
+             "fit")
+SINDY_SMALL = dict(data_dir="unused", patch_size=48, overlap=16, skip_boundary=3, subsample=2, min_patches=2,
+                   write_artifacts=False)
+
+
+def _patch_motion(S) -> float:
+    """Residual motion of (P, T, h, w) patch sequences: RMS of frame-to-previous differences."""
+    import torch
+
+    return float(torch.sqrt(torch.mean((S[:, 1:] - S[:, :-1]) ** 2)))
+
+
+def _sindy_gates(label: str, out: dict, positive: bool) -> None:
+    """30 patches (the 5 x 6 grid of 256 px patches), finite coefficients,
+    an average quality in (0, 1] (``positive``) or [0, 1]. A quality is
+    max(0, R2) x registration quality: where a registration removes the
+    stack's drift, u_t is left at the noise's level and R2 may be <= 0 in
+    every patch: the compose schedule gives 0 on this stack, as pdx does on
+    the CPU, and is gated on the residual motion it removes instead."""
+    import numpy as np
+
+    if out["n_patches"] != 30 or not (np.isfinite(out["coeffs"]).all() and np.isfinite(out["patch_coeffs"]).all()):
+        raise AssertionError(f"{label}: {out['n_patches']} patches, coefficients {out['coeffs']}")
+    if not (0 < out["avg_quality"] <= 1 if positive else 0 <= out["avg_quality"] <= 1):
+        raise AssertionError(f"{label}: average quality {out['avg_quality']} outside {'(0' if positive else '[0'}, 1]")
+
+
+def _sindy_small_card_vs_cpu(dev) -> None:
+    """patch_sindy on the card against the CPU on 6 frames of 96 x 96, every
+    schedule, at the CPU tests' limits: ensemble coefficients within 1e-10
+    (no flow) or 1e-5 (float32 flows) of max|coef|, each patch's within 1e-9
+    or 3e-5 (the constant term is round-off on both sides: below 1e-8), the
+    average quality within 1e-10 or 2e-5; the batched ECC's registered
+    patches within 1e-10 of max|value| with the same iterations a patch."""
+    import numpy as np
+    import torch
+
+    from tools.make_synth_stack import make_stack
+
+    from pdx_torch.pipelines import patch_sindy as ps
+    from pdx_torch.register.ecc import register_sequence_info
+
+    U = make_stack(T=6, H=96, W=96, seed=1) / 65535.0
+    flow = dict(registration_method="optical_flow")
+    for label, kw, no_flow in (
+        ("none", {}, True), ("ecc", dict(registration_method="ecc"), True),
+        ("chain", dict(flow, flow_compose=False), False),
+        ("compose flow_downsample=1", dict(flow, flow_compose=True, flow_downsample=1), False),
+        ("compose flow_downsample=2", dict(flow, flow_compose=True, flow_downsample=2, patch_size=64, overlap=32), False),
+        ("frame scope", dict(flow, flow_scope="frame"), False),
+    ):
+        cfg = ps.PatchSindyConfig(**{**SINDY_SMALL, **kw})
+        a, b = (ps.run(cfg, U_raw=U, device=d) for d in (dev, "cpu"))
+        scale = np.abs(b["patch_coeffs"]).max()
+        ens_tol, patch_tol, q_tol = (1e-10, 1e-9, 1e-10) if no_flow else (1e-5, 3e-5, 2e-5)
+        ens = np.abs(a["coeffs"][1:] - b["coeffs"][1:]).max() / scale
+        per = np.abs(a["patch_coeffs"][:, 1:] - b["patch_coeffs"][:, 1:]).max() / scale
+        const = max(np.abs(a["patch_coeffs"][:, 0]).max(), np.abs(b["patch_coeffs"][:, 0]).max()) / scale
+        dq = abs(a["avg_quality"] - b["avg_quality"])
+        if not (ens < ens_tol and per < patch_tol and const < 1e-8 and dq < q_tol):
+            raise AssertionError(f"patch_sindy {label}: card and CPU apart by {ens:.1e} (ensemble, limit {ens_tol:g}), "
+                                 f"{per:.1e} (patches, limit {patch_tol:g}) of max|coef|, constant term {const:.1e}, "
+                                 f"quality {dq:.1e} (limit {q_tol:g})")
+        print(f"[small] patch_sindy {label} {U.shape}: card and CPU apart by {ens:.1e} (ensemble, limit {ens_tol:g}) and "
+              f"{per:.1e} (patches, limit {patch_tol:g}) of max|coef|, quality by {dq:.1e} (limit {q_tol:g})")
+    seqs = ps.extract_patch_sequences(torch.as_tensor(U), 48, 32)[0]
+    on_card, on_cpu = (register_sequence_info(seqs.to(d), gauss_sigma=1.0) for d in (dev, "cpu"))
+    apart = float((on_card[0].cpu() - on_cpu[0]).abs().max() / on_cpu[0].abs().max())
+    if not (apart < 1e-10 and torch.equal(on_card[2].cpu(), on_cpu[2])):
+        raise AssertionError(f"batched ECC: card and CPU apart by {apart:.1e} (limit 1e-10), iterations "
+                             f"{on_card[2].tolist()} vs {on_cpu[2].tolist()}")
+    print(f"[small] batched ECC {tuple(seqs.shape)}: registered patches apart by {apart:.1e} of max (limit 1e-10), "
+          f"the same iterations a patch and step {on_cpu[2].tolist()}")
+
+
+def _patch_sindy_phase(f255, dev, card: str, counters: dict) -> None:
+    """Phase 8: patch_sindy at the real dataset's shape (``f255``: the
+    51 x 1024 x 1280 frames read as 8-bit and scaled by 1/255, read-only):
+    the default configuration (no registration), the per-patch optical flow
+    (compose path, flows at 64 x 64), ECC, and frame scope; then the card
+    against the CPU."""
+    import torch
+
+    from pdx_torch.ops.filters import gaussian_filter_reflect, savgol_time
+    from pdx_torch.pipelines import patch_sindy as ps
+    from pdx_torch.register.ecc import CHECK_EVERY, register_sequence_info
+
+    label = "patch_sindy 51x1024x1280 u8/255, default configuration"
+    cfg = ps.PatchSindyConfig(data_dir="unused", write_artifacts=False)
+    walls, out = _warm_walls(lambda: ps.run(cfg, U_raw=f255, device=dev), counters, label)
+    _sindy_gates(label, out, positive=False)
+    print(f"[patch_sindy] {label}: warm wall {_wall_text(walls)}, {out['n_patches']} patches, average quality "
+          f"{out['avg_quality']:.6f}, coefficients {[round(float(c), 6) for c in out['coeffs']]} ({card})")
+    _stage_lines(label, lambda t: ps.run(cfg, U_raw=f255, device=dev, timer=t), PATCH_SINDY_STAGES, card)
+    for what, kw, positive in (
+        ("optical_flow per patch (compose, flows at 64 x 64)", dict(registration_method="optical_flow"), False),
+        ("ecc", dict(registration_method="ecc"), True),
+        ("optical_flow frame scope", dict(registration_method="optical_flow", flow_scope="frame"), True),
+    ):
+        one = dataclasses.replace(cfg, **kw)
+        w, o = _warm_walls(lambda: ps.run(one, U_raw=f255, device=dev), counters, f"patch_sindy {what}", reps=1)
+        _sindy_gates(f"patch_sindy {what}", o, positive)
+        print(f"[patch_sindy] {what}: warm wall {w[0]:.4f} s (one run), average quality {o['avg_quality']:.6f} "
+              f"(std {o['quality_std']:.6f}) ({card})")
+        _stage_lines(f"patch_sindy {what}", lambda t: ps.run(one, U_raw=f255, device=dev, timer=t),
+                     PATCH_SINDY_STAGES, card, reps=1)
+    # the per-patch schedules alone: the residual motion the compose path removes (its gate), ECC's
+    # (printed: a patch whose ECC fails at a step passes that frame through unwarped, a jump), and ECC's
+    # iterations (every patch of a step runs until the slowest stops)
+    U = savgol_time(gaussian_filter_reflect(torch.as_tensor(f255, device=dev), cfg.spatial_sigma), 3, 2)
+    seqs = ps.extract_patch_sequences(U, 256, 192)[0]
+    composed = ps.register_patches(dataclasses.replace(cfg, registration_method="optical_flow"), seqs)[0]
+    ecc_reg, ccs, iters, syncs = register_sequence_info(seqs, motion="euclidean", gauss_sigma=1.0)
+    motion = [_patch_motion(x) for x in (seqs, composed, ecc_reg)]
+    if not motion[1] < motion[0]:
+        raise AssertionError(f"patch_sindy: the compose path did not lower the patches' residual motion: {motion}")
+    per_patch = [torch.sqrt(torch.mean((x[:, 1:] - x[:, :-1]) ** 2, dim=(1, 2, 3))) for x in (seqs, ecc_reg)]
+    lowered = int((per_patch[1] < per_patch[0]).sum())
+    it = iters.cpu()
+    print(f"[patch_sindy] residual motion of the 30 patches {motion[0]:.6e} unregistered, {motion[1]:.6e} composed, "
+          f"{motion[2]:.6e} by ECC (lowered in {lowered} of 30 patches); ECC iterations a patch and step: mean "
+          f"{float(it.double().mean()):.2f}, max {int(it.max())}; the batch's a step (its slowest patch) sum to {int(it.max(0).values.sum())} over "
+          f"{it.shape[1]} steps; {syncs} host stop checks (after iterations 1, 2, 4, ... then every {CHECK_EVERY}); "
+          f"cc min {float(ccs.min()):.4f} ({card})")
+    _sindy_small_card_vs_cpu(dev)
+
+
+def _ir_small_card_vs_cpu(dev) -> None:
+    """improved_registration on the card against the CPU on 6 frames of
+    96 x 96 (Savitzky-Golay window 5): the same method, flow magnitudes
+    within 1e-6 relative, improvements within 1e-4 points, coefficients
+    within 1e-5 of max|coef| with the same support; DIS flows within 1e-10
+    of max|flow| of the CPU's, and bitwise equal between two calls on the
+    card."""
+    import numpy as np
+    import torch
+
+    from tools.make_synth_stack import make_stack
+
+    from pdx_torch.pipelines import improved_registration as ir
+    from pdx_torch.register.dis import dis_flow
+
+    U = make_stack(T=6, H=96, W=96, seed=1)
+    cfg = ir.ImprovedRegistrationConfig(data_dir="unused", max_images=6, skip=10, subsample=6, savgol_window=5,
+                                        savgol_poly=2, write_artifacts=False)
+    a, b = (ir.run(cfg, U_raw=U, device=d) for d in (dev, "cpu"))
+    mags = max(abs(a[m][k] - b[m][k]) / abs(b[m][k]) for m in ("farneback_metrics", "dis_metrics")
+               for k in ("avg_flow_before", "avg_flow_after"))
+    pts = max(abs(a[m]["improvement_pct"] - b[m]["improvement_pct"]) for m in ("farneback_metrics", "dis_metrics"))
+    coef = np.abs(a["coeffs"] - b["coeffs"]).max() / np.abs(b["coeffs"]).max()
+    same = np.array_equal(np.abs(a["coeffs"]) > 1e-5, np.abs(b["coeffs"]) > 1e-5)
+    if not (a["selected_method"] == b["selected_method"] and mags < 1e-6 and pts < 1e-4 and coef < 1e-5 and same):
+        raise AssertionError(f"improved_registration: card {a['selected_method']} vs CPU {b['selected_method']}; "
+                             f"magnitudes apart by {mags:.1e} (limit 1e-6), improvements by {pts:.1e} points (1e-4), "
+                             f"coefficients by {coef:.1e} of max|coef| (1e-5), same support {same}")
+    print(f"[small] improved_registration {U.shape}: both select {a['selected_method']}; flow magnitudes apart by "
+          f"{mags:.1e} relative (limit 1e-6), improvements by {pts:.1e} points (1e-4), coefficients by {coef:.1e} of "
+          f"max|coef| (1e-5), same support")
+    F = torch.as_tensor(U / 65535.0)
+    first, again, on_cpu = dis_flow(F[0].to(dev), F[3].to(dev)), dis_flow(F[0].to(dev), F[3].to(dev)), dis_flow(F[0], F[3])
+    bitwise = all(torch.equal(x, y) for x, y in zip(first, again))
+    apart = max(float((x.cpu() - z).abs().max() / z.abs().max()) for x, z in zip(first, on_cpu))
+    if not (bitwise and apart < 1e-10):
+        raise AssertionError(f"dis_flow on the card: repeats bitwise {bitwise}; apart from the CPU by {apart:.1e}")
+    print(f"[small] dis_flow {tuple(F.shape[1:])}: two calls on the card bitwise equal; card and CPU apart by "
+          f"{apart:.1e} of max|flow| (limit 1e-10)")
+
+
+def _improved_registration_phase(full, dev, card: str, counters: dict) -> None:
+    """Phase 9: improved_registration at the real dataset's shape (``full``:
+    the 51 x 1024 x 1280 uint16 stack read as float64), default
+    configuration; then the card against the CPU."""
+    import numpy as np
+
+    from pdx_torch.pipelines import improved_registration as ir
+
+    label = "improved_registration 51x1024x1280 uint16, default configuration"
+    cfg = ir.ImprovedRegistrationConfig(data_dir="unused", write_artifacts=False)
+    walls, out = _warm_walls(lambda: ir.run(cfg, U_raw=full, device=dev), counters, label, reps=1)
+    if walls[0] < 10.0:  # a median of 3 where a run is short enough
+        walls += _warm_walls(lambda: ir.run(cfg, U_raw=full, device=dev), counters, label, reps=2, warm=False)[0]
+    metrics = [out[m][k] for m in ("farneback_metrics", "dis_metrics") for k in out[m]]
+    if not (np.isfinite(out["coeffs"]).all() and len(out["coeffs"]) == 13 and math.isfinite(out["r2"])
+            and all(math.isfinite(v) for v in metrics)):
+        raise AssertionError(f"{label}: coefficients {out['coeffs']}, R2 {out['r2']}, metrics {metrics}")
+    if out["working_shape"] != (49, 80, 101) or out["selected_method"] not in ("DIS", "Farneback"):
+        raise AssertionError(f"{label}: working shape {out['working_shape']}, method {out['selected_method']}")
+    fb, dis = out["farneback_metrics"], out["dis_metrics"]
+    print(f"[improved_registration] {label}: warm wall {_wall_text(walls)}; Farnebäck {fb['avg_flow_before']:.6f} -> "
+          f"{fb['avg_flow_after']:.6f} px ({fb['improvement_pct']:.4f}%), DIS -> {dis['avg_flow_after']:.6f} px "
+          f"({dis['improvement_pct']:.4f}%); selected {out['selected_method']}, working stack {out['working_shape']}, "
+          f"R2 {out['r2']:.6f}; {out['equation']} ({card})")
+    stages = _stage_lines("improved_registration", lambda t: ir.run(cfg, U_raw=full, device=dev, timer=t), IR_STAGES,
+                          card, reps=1)
+    print(f"[stage] improved_registration: Farnebäck chain {1e3 * stages['farneback_chain'] / 50:.3f} ms a flow (50 "
+          f"flows of 1024 x 1280 frames, each computed at 512 x 640), DIS chain {1e3 * stages['dis_chain'] / 50:.3f} ms "
+          f"a step, quality sweeps {1e3 * stages['quality_before']:.3f} ms each (50 float64 pairs at 1024 x 1280) "
+          f"({card})")
+    _ir_small_card_vs_cpu(dev)
+
+
 def main() -> int:
     import os
 
@@ -1214,6 +1439,15 @@ def main() -> int:
     _await_card("[transport]", dev)
     _transport_phase(full, dev, card, counters)
     _phase_memory("[transport]", dev)
+    f255 = (full >> 8).astype(np.uint8) / 255.0  # what patch_sindy makes of 8-bit TIFFs
+    f255.setflags(write=False)
+    _await_card("[patch_sindy]", dev)
+    _patch_sindy_phase(f255, dev, card, counters)
+    _phase_memory("[patch_sindy]", dev)
+    del f255
+    _await_card("[improved_registration]", dev)
+    _improved_registration_phase(full, dev, card, counters)
+    _phase_memory("[improved_registration]", dev)
     del full
 
     if "jax" in sys.modules:

@@ -13,6 +13,11 @@ Usage:
       [--skip 25] [--subsample 12] [--profile] [...]
   python -m pdx_torch transport --data-dir DIR [--output-dir OUT] [--max-images 51]
       [--downsample 4] [--quick]
+  python -m pdx_torch patch-sindy --data-dir DIR [--registration none|ecc|optical_flow]
+      [--flow-scope patch|frame] [--flow-impl auto|compose|chain] [--patch-size 256]
+      [--overlap 64] [--max-patches N] [...]
+  python -m pdx_torch improved-registration --data-dir DIR [--max-images 51] [--skip 25]
+      [--subsample 12]
 
 The flags are ``pdx``'s (for ks2d-bench one per ``Ks2dBenchConfig``
 field), plus ``--device`` (default ``cuda``). The run uses the CUDA card and
@@ -109,12 +114,26 @@ def cmd_transport(argv: list[str]) -> int:
     return cmd_transport(argv)
 
 
+def cmd_patch_sindy(argv: list[str]) -> int:
+    from pdx_torch.pipelines.patch_sindy import cmd_patch_sindy
+
+    return cmd_patch_sindy(argv)
+
+
+def cmd_improved_registration(argv: list[str]) -> int:
+    from pdx_torch.pipelines.improved_registration import cmd_improved_registration
+
+    return cmd_improved_registration(argv)
+
+
 COMMANDS = {
     "ks2d-bench": cmd_ks2d_bench,
     "ks2d-bench-json": cmd_json,
     "patch-discover": cmd_patch_discover,
     "analyze": cmd_analyze,
     "transport": cmd_transport,
+    "patch-sindy": cmd_patch_sindy,
+    "improved-registration": cmd_improved_registration,
 }
 
 

@@ -1,4 +1,5 @@
-"""Smoothing filters (port of ``pdx/ops/filters.py:28-133``).
+"""Smoothing filters (port of ``pdx/ops/filters.py:28-133`` and
+``:226-274``).
 
 ``time_smooth_moving_average`` smooths along axis 0 with reflect padding;
 ``smooth_1d`` along the trailing axis with edge padding. Both sum a window
@@ -11,6 +12,10 @@ numpy's **symmetric** padding: the edge sample is repeated
 this border). Each axis pass is one gather of the padded line and one product
 of its sliding windows with the taps, where ``pdx`` adds shifted copies tap by
 tap; the two sum the same products in another order.
+
+``savgol_time`` is scipy's Savitzky-Golay filter along axis 0 with
+``mode="interp"`` edges; its taps and edge projectors are computed on the
+host in float64, as ``pdx`` does.
 """
 
 from __future__ import annotations
@@ -122,3 +127,52 @@ def gaussian_filter1d_reflect(x: Tensor, sigma: float, axis: int = -1, truncate:
         return x
     k = _gaussian_taps(sigma, float(truncate), x.dtype, x.device)
     return correlate1d_symmetric(x, k, axis % x.ndim)
+
+
+def _savgol_coeffs(window: int, polyorder: int) -> np.ndarray:
+    """Savitzky-Golay smoothing coefficients (scipy.signal.savgol_coeffs,
+    deriv=0): the least-squares fit of a degree-``polyorder`` polynomial over
+    the centred window, evaluated at the centre."""
+    if window % 2 == 0:
+        raise ValueError("savgol window must be odd")
+    half = window // 2
+    x = np.arange(-half, half + 1, dtype=np.float64)
+    A = np.vander(x, polyorder + 1, increasing=True)  # (window, p+1)
+    rhs = np.zeros(polyorder + 1)
+    rhs[0] = 1.0
+    return A @ np.linalg.solve(A.T @ A, rhs)  # (window,)
+
+
+@lru_cache(maxsize=32)
+def _savgol_operators(T: int, window: int, polyorder: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host float64 (interior (T - 2h, T), first (h, window), last (h,
+    window)): the interior taps laid out as a banded matrix over the frames,
+    and the edge rows of the projector onto degree-``polyorder`` polynomials
+    over the first / last ``window`` frames."""
+    half = window // 2
+    coeffs = _savgol_coeffs(window, polyorder)
+    interior = np.zeros((T - 2 * half, T))
+    for i in range(window):
+        interior[np.arange(T - 2 * half), np.arange(T - 2 * half) + i] = coeffs[i]
+    A = np.vander(np.arange(window, dtype=np.float64), polyorder + 1, increasing=True)
+    proj = A @ np.linalg.solve(A.T @ A, A.T)  # (window, window)
+    return interior, proj[:half], proj[window - half :]
+
+
+def savgol_time(U: Tensor, window: int, polyorder: int) -> Tensor:
+    """Savitzky-Golay filter along axis 0 with scipy's ``mode="interp"``
+    edges: the interior is the correlation with the smoothing taps; the
+    first and last ``window // 2`` frames are the exact polynomial
+    least-squares fit over the first / last ``window`` frames, evaluated at
+    their positions. Each part is one contraction over the frame axis."""
+    window = int(window)
+    polyorder = int(polyorder)
+    T = U.shape[0]
+    if window > T:
+        raise ValueError("savgol window longer than sequence")
+    interior, first, last = (
+        torch.as_tensor(m, dtype=U.dtype, device=U.device) for m in _savgol_operators(T, window, polyorder)
+    )
+    flat = U.reshape(T, -1)
+    out = torch.cat([first @ flat[:window], interior @ flat, last @ flat[T - window :]])
+    return out.reshape(U.shape)

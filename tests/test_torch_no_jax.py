@@ -1,7 +1,8 @@
 """pdx_torch and chip_smoke.py must never import jax (nor pdx, whose
 __init__ imports jax): neither on import nor while a run is under way (the
 KS-2D dataset / regression branch, the patch ensemble and analyze with
-registration on, transport)."""
+registration on, transport; in a second process, patch_sindy with ECC and
+with optical flow, and improved_registration)."""
 
 import os
 import subprocess
@@ -52,10 +53,43 @@ print("clean")
 """
 
 
-def test_port_imports_no_jax():
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+PROBE_STUDIES = """
+import sys
+import numpy as np
+import pdx_torch.register, pdx_torch.register.ecc, pdx_torch.register.dis, pdx_torch.register.tvl1
+import pdx_torch.register.quality, pdx_torch.pipelines.patch_sindy, pdx_torch.pipelines.improved_registration
+from tools.make_synth_stack import make_stack
+from pdx_torch.pipelines.patch_sindy import PatchSindyConfig, run as sindy_run
+from pdx_torch.pipelines.improved_registration import ImprovedRegistrationConfig, run as ir_run
+stack = make_stack(T=4, H=96, W=96)
+for method in ("ecc", "optical_flow"):
+    out = sindy_run(PatchSindyConfig(data_dir="unused", patch_size=48, overlap=16, skip_boundary=3, subsample=2,
+                                     min_patches=2, registration_method=method, write_artifacts=False),
+                    U_raw=stack[:3] / 65535.0, device="cpu")
+    assert out["n_patches"] == 4 and np.isfinite(out["coeffs"]).all(), out
+out = ir_run(ImprovedRegistrationConfig(data_dir="unused", skip=10, subsample=6, savgol_window=3, savgol_poly=2,
+                                        write_artifacts=False), U_raw=stack[:, :64, :64], device="cpu")
+assert out["selected_method"] in ("DIS", "Farneback") and np.isfinite(out["coeffs"]).all(), out
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "pdx.")) or m == "pdx")
+assert not bad, bad
+print("clean")
+"""
+
+
+def _probe_is_clean(probe: str) -> None:
+    # one intra-op thread: the probe checks imports, and beside the other test
+    # workers a many-threaded run of small ops spends its time waiting
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"} | {"OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
-        [sys.executable, "-c", PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def test_port_imports_no_jax():
+    _probe_is_clean(PROBE)
+
+
+def test_registration_studies_import_no_jax():
+    _probe_is_clean(PROBE_STUDIES)

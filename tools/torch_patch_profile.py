@@ -1,6 +1,7 @@
 """Profile the port's real-image pipelines on one CUDA card.
 
-    python tools/torch_patch_profile.py [--pipeline patch|analyze|transport] [--full] [--out DIR]
+    python tools/torch_patch_profile.py [--pipeline patch|analyze|transport|patch_sindy|improved_registration]
+        [--full] [--out DIR]
 
 ``patch`` (the default) runs ``pdx_torch.pipelines.patch_discovery.run`` on
 ``bench.py``'s stack (``make_stack(51, 512, 640)`` as float64, skip 12,
@@ -10,12 +11,16 @@ registration flow. ``analyze`` and ``transport`` trace one warm run of
 their pipeline at the real dataset's shape and default configuration
 (``analyze`` reads the frames as 8-bit grayscale, as ``load_images(mode=
 "grayscale_u8")`` does); ``transport`` also traces its pair flows and its
-library + Lasso sweep alone. Tracing is ``torch.profiler`` (CPU and CUDA
-activities). Prints, per traced window: the host wall, the CUDA kernels
-launched, their summed device time, the device's busy and idle share of the
-wall, and the ten costliest kernels; writes the Chrome trace of the one
-flow (patch) or of the sweep (transport) to ``--out`` (default
-``outputs/profile/``).
+library + Lasso sweep alone. ``patch_sindy`` traces one warm run of each
+registration schedule (``none``, ``ecc``, ``optical_flow`` per patch on the
+compose path, ``optical_flow`` with frame scope) on the real dataset's shape
+read as 8-bit and scaled by 1/255; ``improved_registration`` one warm run of
+the default configuration on the uint16 stack, and one quality sweep alone.
+Tracing is ``torch.profiler`` (CPU and CUDA activities). Prints, per traced
+window: the host wall, the CUDA kernels launched, their summed device time,
+the device's busy and idle share of the wall, and the ten costliest
+kernels; writes the Chrome trace of the one flow (patch) or of the sweep
+(transport) to ``--out`` (default ``outputs/profile/``).
 The profiler's own host cost inflates the traced walls. Fails without a
 card.
 """
@@ -70,7 +75,8 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--pipeline", choices=["patch", "analyze", "transport"], default="patch")
+    parser.add_argument("--pipeline", choices=["patch", "analyze", "transport", "patch_sindy", "improved_registration"],
+                        default="patch")
     parser.add_argument("--full", action="store_true", help="patch: the real dataset's shape instead of bench.py's stack")
     parser.add_argument("--out", default="outputs/profile")
     args = parser.parse_args()
@@ -94,6 +100,29 @@ def main() -> int:
         U8.setflags(write=False)
         cfg = an.AnalyzeConfig(data_dir="unused", write_artifacts=False)
         _window("analyze_run", lambda: an.run(cfg, U_raw=U8, device=dev), None, card)
+        return 0
+    if args.pipeline == "patch_sindy":
+        from pdx_torch.pipelines import patch_sindy as ps
+
+        U = (make_stack(T=51, H=1024, W=1280) >> 8).astype(np.uint8) / 255.0
+        U.setflags(write=False)
+        for label, kw in (("none", {}), ("ecc", dict(registration_method="ecc")),
+                          ("optical_flow", dict(registration_method="optical_flow")),
+                          ("frame", dict(registration_method="optical_flow", flow_scope="frame"))):
+            cfg = ps.PatchSindyConfig(data_dir="unused", write_artifacts=False, **kw)
+            _window(f"patch_sindy_{label}", lambda: ps.run(cfg, U_raw=U, device=dev), None, card)
+        return 0
+    if args.pipeline == "improved_registration":
+        from pdx_torch.io_host.images import device_stack
+        from pdx_torch.pipelines import improved_registration as ir
+        from pdx_torch.register.quality import mean_flow_magnitude
+
+        U = make_stack(T=51, H=1024, W=1280)
+        U.setflags(write=False)
+        cfg = ir.ImprovedRegistrationConfig(data_dir="unused", write_artifacts=False)
+        _window("improved_registration_run", lambda: ir.run(cfg, U_raw=U, device=dev), None, card)
+        U64 = device_stack(U, torch.float64, device=dev)
+        _window("improved_registration_quality_sweep", lambda: mean_flow_magnitude(U64), None, card)
         return 0
     if args.pipeline == "transport":
         from pdx_torch.io_host.images import device_stack

@@ -116,7 +116,27 @@ Phases, each of which exits non-zero on failure:
    quality metrics, the working shape, a selected method, no kernel
    launched. Then the card against the CPU on 6 x 96 x 96 frames (the same
    method, flow magnitudes within 1e-6, coefficients within 1e-5 of
-   max|coef|), and ``dis_flow`` twice on the card, bitwise equal.
+   max|coef|), and ``dis_flow`` twice on the card, bitwise equal;
+10. ``[comprehensive]``: ``pipelines.comprehensive.run`` at its default
+   size (21 methods x 8 regimes, 200 frames of 64 x 64 float64 from 10,000
+   Euler steps), writing ``benchmark_results.json`` to a temporary
+   directory: warm wall (median of 3), ``[stage]`` lines (the simulation,
+   the host corruption suite, the preprocessors, the DMD calls, the batched
+   ridge family, Huber, host RANSAC, the weak form, the ensemble), the DMD's
+   device-to-host copies a regime; gates: no method failed, finite
+   coefficients (M15 on the noise-free regimes excepted: fault F7), M01 on
+   N0_clean at pdx's error on the CPU to 1e-6 points, no kernel launched.
+   Then the card against the CPU at n_seconds=0.25 on four regimes: every
+   method within 1e-8 of max|coef| but M04 (F8) and M15 on N0/N3 (F7), the
+   same best method overall and per regime;
+11. ``[sindy1d]``: ``pipelines.sindy1d.run`` at its default size (KS-1D,
+   N = 200, 2000 ETD steps) in every scenario, derivative, denoiser and
+   regressor, and ``ensemble_over_ics``; warm walls (median of 3) and
+   ``[stage]`` lines of four configurations, ``simulate_ks1d`` and
+   ``varying_ic_data`` alone; gates: finite coefficients, clean STRidge
+   within 1.1 x pdx's worst error on the CPU, registration lowering the
+   shifted data's error, no kernel launched. Then the card against the CPU
+   at n_steps=400, every configuration, within 1e-9 of max|coef|.
 
 Before each phase from 2 on, the script waits (at most 700 s in all) until
 the card has that phase's peak memory and 1 GiB free, in case another
@@ -198,7 +218,11 @@ GIB = 2**30
 # (rounded up); before the phase, that and 1 GiB for the CUDA context and a margin must be free.
 PHASE_PEAK_GIB = {"the kernels": 4.7, "the KS-2D paths": 2.9, "the KS-2D card against the CPU": 0.5,
                   "[patch]": 3.8, "[analyze]": 4.3, "[transport]": 7.7, "[patch_sindy]": 8.3,
-                  "[improved_registration]": 18.4}
+                  "[improved_registration]": 18.4,
+                  # reckoned 1-3 and < 0.1 GiB before the first run (the batched ridge family's Fourier fields,
+                  # 14 x 199 x 64 x 64 complex128 = 183 MB each; sindy1d's 2001 x 200 states); each phase run alone
+                  # reserved 2.098 and 0.326 GiB, after the earlier phases 3.475 and 1.697 (their cached stacks)
+                  "[comprehensive]": 3.5, "[sindy1d]": 1.7}
 WAIT_FOR_CARD_S = 700.0  # at most this long in all, waiting for other processes to free the card's memory
 _waited = [0.0]
 
@@ -1186,6 +1210,176 @@ def _improved_registration_phase(full, dev, card: str, counters: dict) -> None:
     _ir_small_card_vs_cpu(dev)
 
 
+COMP_STAGES = ("simulate_clean", "corruption_suite", "preprocess", "dmd", "ridge_family", "huber", "ransac",
+               "weak_form", "ensemble")
+# M01_baseline's error on N0_clean at the default (full) size, from pdx on the CPU in float64 (run with pdx
+# when this phase was written): the card's must be the same to 1e-6 percentage points
+PDX_M01_CLEAN_ERROR = 6.096730154104554
+# round-off lotteries of the reference, held to finite coefficients only: M15 on the noise-free regimes (F7),
+# M04's TV iteration everywhere (F8)
+F7_CELLS = {("M15_sparse_dmd", n) for n in ("N0_clean", "N3_blur", "N4_drift")}
+F8_METHOD = "M04_tv"
+COMP_SMALL = dict(n_seconds=0.25, noises=("N2_noise", "N3_blur", "N7_all"), write_artifacts=False)
+
+
+def _comprehensive_gates(label: str, out: dict) -> None:
+    """No method failed (a CUDA error must not pass as a bad method), 8
+    regimes x 21 methods, finite coefficients (M15 on N0/N3/N4 may be
+    non-finite, as pdx's there), M01 on N0_clean at pdx's error."""
+    failed = [(n, m, r["error_msg"]) for n, d in out["results"].items() for m, r in d.items() if "error_msg" in r]
+    if failed:
+        raise AssertionError(f"{label}: {len(failed)} methods failed: {failed[:4]}")
+    if len(out["results"]) != 8 or any(len(d) != 21 for d in out["results"].values()):
+        raise AssertionError(f"{label}: {len(out['results'])} regimes, {[len(d) for d in out['results'].values()]}")
+    bad = [(n, m) for n, d in out["results"].items() for m, r in d.items()
+           if (m, n) not in F7_CELLS and not all(math.isfinite(c) for c in r["coef"])]
+    if bad:
+        raise AssertionError(f"{label}: non-finite coefficients in {bad}")
+    err = out["results"]["N0_clean"]["M01_baseline"]["error"]
+    if not abs(err - PDX_M01_CLEAN_ERROR) < 1e-6:
+        raise AssertionError(f"{label}: M01 on N0_clean {err!r}% against pdx's {PDX_M01_CLEAN_ERROR!r}% on the CPU")
+
+
+def _comprehensive_small_card_vs_cpu(dev) -> None:
+    """The method matrix at n_seconds=0.25 on N0_clean, N2_noise, N3_blur
+    and N7_all, on the card and on the CPU: every method within 1e-8 of
+    max|coef| but the lotteries (M04 everywhere, F8; M15 on N0/N3, F7);
+    the same best_overall and best_per_noise."""
+    import numpy as np
+
+    from pdx_torch.pipelines import comprehensive as cr
+
+    a, b = (cr.run(cr.ComprehensiveConfig(**COMP_SMALL), d) for d in (dev, "cpu"))
+    worst, where = 0.0, None
+    for n, d in b["results"].items():
+        for m, r in d.items():
+            if m == F8_METHOD or (m, n) in F7_CELLS:
+                continue
+            cb, ca = np.asarray(r["coef"]), np.asarray(a["results"][n][m]["coef"])
+            e = float(np.abs(ca - cb).max() / np.abs(cb).max())
+            if not e <= worst:
+                worst, where = e, f"{n}/{m}"
+    same = a["best_overall"] == b["best_overall"] and a["best_per_noise"] == b["best_per_noise"]
+    if not (worst < 1e-8 and same):
+        raise AssertionError(f"comprehensive: card and CPU apart by {worst:.1e} of max|coef| at {where} (limit 1e-8); "
+                             f"best {a['best_overall']} / {b['best_overall']}, per regime {a['best_per_noise']} / "
+                             f"{b['best_per_noise']}")
+    print(f"[small] comprehensive n_seconds=0.25, 4 regimes x 21 methods: card and CPU apart by at most {worst:.1e} "
+          f"of max|coef| ({where}; limit 1e-8; M04 everywhere and M15 on N0/N3 left out, F8 / F7); the same best "
+          f"method ({b['best_overall']}) and best per regime")
+
+
+def _comprehensive_phase(dev, card: str, counters: dict) -> None:
+    """Phase 10: the comprehensive method matrix at its default size (21
+    methods x 8 regimes, 200 frames of 64 x 64 float64 from 10,000 Euler
+    steps), writing benchmark_results.json to a temporary directory: warm
+    wall (median of 3), [stage] lines, the DMD's host copies a regime; then
+    the card against the CPU at n_seconds=0.25."""
+    import tempfile
+    from pathlib import Path
+
+    from pdx_torch.pipelines import comprehensive as cr
+    from pdx_torch.solve import dmd
+
+    label = "comprehensive 21 methods x 8 regimes, 200 x 64 x 64 float64, default configuration"
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cr.ComprehensiveConfig(output_dir=tmp)
+        walls, out = _warm_walls(lambda: cr.run(cfg, dev), counters, label)
+        art = json.loads((Path(tmp) / "benchmark_results.json").read_text())
+    _comprehensive_gates(label, out)
+    if set(art) != set(out) or art["best_overall"] != out["best_overall"]:
+        raise AssertionError(f"{label}: benchmark_results.json holds {sorted(art)}, best {art.get('best_overall')}")
+    lottery = {f"{n}/{m}": out["results"][n][m]["error"] for m, n in sorted(F7_CELLS)}
+    print(f"[comprehensive] {label}: warm wall {_wall_text(walls)}; best overall {out['best_overall']}, best per regime "
+          f"{out['best_per_noise']}; M01 on N0_clean {out['results']['N0_clean']['M01_baseline']['error']!r}% (pdx on "
+          f"the CPU {PDX_M01_CLEAN_ERROR!r}%); M15 on the noise-free regimes (F7) {lottery}; placement "
+          f"{sorted(set(out['placement'].values()))}; benchmark_results.json written ({card})")
+    cfg = cr.ComprehensiveConfig(write_artifacts=False)
+    syncs = dmd.HOST_SYNCS.count
+    stages = _stage_lines("comprehensive", lambda t: cr.run(cfg, dev, timer=t), COMP_STAGES, card, reps=1)
+    per_regime = (dmd.HOST_SYNCS.count - syncs) / 8
+    print(f"[stage] comprehensive: simulate_clean {1e6 * stages['simulate_clean'] / 10_000:.3f} us an Euler step "
+          f"(10,000 eager steps); the DMD calls {1e3 * stages['dmd'] / 8:.3f} ms a regime (11 SVD projections, "
+          f"{per_regime:.0f} device-to-host copies a regime); the batched ridge family "
+          f"{1e3 * stages['ridge_family'] / 8:.3f} ms a regime (14 methods, one (14, n + 3, 3) QR) ({card})")
+    _comprehensive_small_card_vs_cpu(dev)
+
+
+S1D_CASES = [dict(scenario=s, derivative=d, regressor=r)
+             for s in ("clean", "noisy", "shifted", "varying_ic")
+             for d in ("spectral", "finite") for r in ("lasso", "stridge", "lstsq")]
+S1D_CASES += [dict(scenario="noisy", denoise=dn, regressor="stridge") for dn in ("spectral", "gaussian", "savgol")]
+S1D_CASES += [dict(scenario="shifted", register=True, register_method=m, regressor=r)
+              for m in ("crosscorr", "phasecorr") for r in ("stridge", "lasso")]
+S1D_STAGES = ("simulate", "preprocess", "library", "fit")
+# the worst relative error of clean STRidge at the default size, from pdx on the CPU in float64 (run with pdx
+# when this phase was written); the flow is chaotic over 2000 steps, so the card's run (or the port's on the
+# CPU: 0.46590%) lands near it, not on it: the gate allows 10% more
+PDX_S1D_CLEAN_STRIDGE_WORST = 0.46654244087340757
+
+
+def _sindy1d_phase(dev, card: str, counters: dict) -> None:
+    """Phase 11: sindy1d at its default size (KS-1D, N = 200, 2000 ETD
+    steps): every scenario, derivative, denoiser and regressor once, and
+    ensemble_over_ics; warm walls (median of 3) and [stage] lines of four
+    configurations, simulate_ks1d and varying_ic_data alone; gates: finite
+    coefficients, clean STRidge at pdx's error, registration helping the
+    shifted data; then the card against the CPU at n_steps=400, every case."""
+    import numpy as np
+    import torch
+
+    from pdx_torch.pipelines import sindy1d as s1
+    from pdx_torch.sim import ks1d
+
+    worst = {}
+    for kw in S1D_CASES:
+        cfg = s1.Sindy1dConfig(**kw)
+        walls, out = _warm_walls(lambda: s1.run(cfg, dev), counters, f"sindy1d {kw}", reps=1)
+        if not (np.isfinite(out["coeffs"]).all() and math.isfinite(out["r2"])):
+            raise AssertionError(f"sindy1d {kw}: coefficients {out['coeffs']}, R2 {out['r2']}")
+        worst[tuple(kw.items())] = float(out["rel_err_pct"].max())
+        print(f"[sindy1d] {kw}: {walls[0]:.4f} s, coefficients {[round(float(c), 6) for c in out['coeffs']]}, worst "
+              f"relative error {worst[tuple(kw.items())]:.4f}%, R2 {out['r2']:.6f}, F1 {out['f1_support']:.3f}, MAD "
+              f"noise {out['noise_mad_estimate']:.4e} ({card})")
+    clean = worst[(("scenario", "clean"), ("derivative", "spectral"), ("regressor", "stridge"))]
+    if not clean < 1.1 * PDX_S1D_CLEAN_STRIDGE_WORST:
+        raise AssertionError(f"sindy1d: clean STRidge worst error {clean}% against pdx's {PDX_S1D_CLEAN_STRIDGE_WORST}%")
+    shifted = worst[(("scenario", "shifted"), ("derivative", "spectral"), ("regressor", "stridge"))]
+    registered = worst[(("scenario", "shifted"), ("register", True), ("register_method", "crosscorr"),
+                        ("regressor", "stridge"))]
+    if not registered < shifted:
+        raise AssertionError(f"sindy1d: registration did not help the shifted data: {registered}% vs {shifted}%")
+    ens = s1.ensemble_over_ics(s1.Sindy1dConfig(), device=dev)
+    if not np.isfinite(ens["all"]).all():
+        raise AssertionError(f"sindy1d ensemble_over_ics: {ens['all']}")
+    print(f"[sindy1d] clean STRidge worst error {clean:.5f}% (pdx on the CPU {PDX_S1D_CLEAN_STRIDGE_WORST:.5f}%); shifted "
+          f"{shifted:.2f}% -> {registered:.5f}% registered; ensemble_over_ics median "
+          f"{[round(float(c), 6) for c in ens['median']]}, std {[round(float(c), 6) for c in ens['std']]} ({card})")
+    for kw in (dict(), dict(scenario="noisy", denoise="savgol", regressor="stridge"),
+               dict(scenario="shifted", register=True, regressor="stridge"), dict(scenario="varying_ic", regressor="stridge")):
+        cfg = s1.Sindy1dConfig(**kw)
+        walls, _ = _warm_walls(lambda: s1.run(cfg, dev), counters, f"sindy1d {kw}")
+        print(f"[sindy1d] {kw or 'default configuration'}: warm wall {_wall_text(walls)} ({card})")
+        _stage_lines(f"sindy1d {kw or 'default'}", lambda t: s1.run(cfg, dev, timer=t), S1D_STAGES, card)
+    sim = ks1d.Ks1dConfig()
+    for what, fn in (("simulate_ks1d", lambda: ks1d.simulate_ks1d(sim, device=dev)),
+                     ("varying_ic_data", lambda: ks1d.varying_ic_data(sim, device=dev))):
+        walls, _ = _warm_walls(fn, counters, what)
+        print(f"[stage] sindy1d {what} alone (2000 ETD steps, N = 200{', 2001 ICs as one batch' if 'vary' in what else ''}): "
+              f"{_wall_text(walls)}, {1e6 * statistics.median(walls) / 2000:.3f} us a step ({card})")
+    worst_apart, where = 0.0, None
+    for kw in S1D_CASES:
+        a, b = (s1.run(s1.Sindy1dConfig(n_steps=400, **kw), d) for d in (dev, "cpu"))
+        e = float(np.abs(a["coeffs"] - b["coeffs"]).max() / np.abs(b["coeffs"]).max())
+        if not (e < 1e-9 and a["f1_support"] == b["f1_support"]):
+            raise AssertionError(f"sindy1d {kw} n_steps=400: card {a['coeffs']} vs CPU {b['coeffs']} ({e:.1e} of "
+                                 f"max|coef|, limit 1e-9), F1 {a['f1_support']} / {b['f1_support']}")
+        if not e <= worst_apart:
+            worst_apart, where = e, kw
+    print(f"[small] sindy1d n_steps=400, {len(S1D_CASES)} configurations: card and CPU apart by at most "
+          f"{worst_apart:.1e} of max|coef| ({where}; limit 1e-9), the same F1 support scores")
+
+
 def main() -> int:
     import os
 
@@ -1449,6 +1643,14 @@ def main() -> int:
     _improved_registration_phase(full, dev, card, counters)
     _phase_memory("[improved_registration]", dev)
     del full
+
+    # 10-11. the comprehensive method matrix and sindy1d (no kernel on either path)
+    _await_card("[comprehensive]", dev)
+    _comprehensive_phase(dev, card, counters)
+    _phase_memory("[comprehensive]", dev)
+    _await_card("[sindy1d]", dev)
+    _sindy1d_phase(dev, card, counters)
+    _phase_memory("[sindy1d]", dev)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

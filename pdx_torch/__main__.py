@@ -18,6 +18,11 @@ Usage:
       [--overlap 64] [--max-patches N] [...]
   python -m pdx_torch improved-registration --data-dir DIR [--max-images 51] [--skip 25]
       [--subsample 12]
+  python -m pdx_torch comprehensive [--output-dir OUT] [--methods M01_baseline,...]
+      [--noises N2_noise,...] [--n-seconds 1.0]
+  python -m pdx_torch sindy1d [--scenario clean|noisy|shifted|varying_ic] [--noise-rel 0.05]
+      [--derivative spectral|finite] [--denoise none|spectral|gaussian|savgol] [--register]
+      [--regressor lasso|stridge|lstsq] [--n-steps 2000]
 
 The flags are ``pdx``'s (for ks2d-bench one per ``Ks2dBenchConfig``
 field), plus ``--device`` (default ``cuda``). The run uses the CUDA card and
@@ -126,6 +131,18 @@ def cmd_improved_registration(argv: list[str]) -> int:
     return cmd_improved_registration(argv)
 
 
+def cmd_comprehensive(argv: list[str]) -> int:
+    from pdx_torch.pipelines.comprehensive import cmd_comprehensive
+
+    return cmd_comprehensive(argv)
+
+
+def cmd_sindy1d(argv: list[str]) -> int:
+    from pdx_torch.pipelines.sindy1d import cmd_sindy1d
+
+    return cmd_sindy1d(argv)
+
+
 COMMANDS = {
     "ks2d-bench": cmd_ks2d_bench,
     "ks2d-bench-json": cmd_json,
@@ -134,6 +151,8 @@ COMMANDS = {
     "transport": cmd_transport,
     "patch-sindy": cmd_patch_sindy,
     "improved-registration": cmd_improved_registration,
+    "comprehensive": cmd_comprehensive,
+    "sindy1d": cmd_sindy1d,
 }
 
 

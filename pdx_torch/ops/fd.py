@@ -1,6 +1,6 @@
 """Finite-difference stencils on the trailing two axes.
 
-Port of ``pdx/ops/fd.py:20-147``. The periodic stencils (KS convention:
+Port of ``pdx/ops/fd.py``. The periodic stencils (KS convention:
 axis -2 is "x", the rows; axis -1 is "y", the columns) use ``torch.roll``,
 which has ``jnp.roll``'s semantics. The non-periodic ones serve the
 real-image pipelines: the reflect-101 same-grid derivatives of
@@ -101,3 +101,10 @@ def second_derivs_4th_order(f: Tensor, dx: float, dy: float) -> tuple[Tensor, Te
     gxx = (-r(f, -2, -2) + 16.0 * r(f, -1, -2) - 30.0 * f + 16.0 * r(f, 1, -2) - r(f, 2, -2)) / (12.0 * dx * dx)
     gyy = (-r(f, -2, -1) + 16.0 * r(f, -1, -1) - 30.0 * f + 16.0 * r(f, 1, -1) - r(f, 2, -1)) / (12.0 * dy * dy)
     return gxx, gyy
+
+
+def d4_1d_periodic(f: Tensor, dx: float) -> Tensor:
+    """4th derivative, 2nd-order accurate, periodic, on the trailing axis:
+    (f[i+2] - 4 f[i+1] + 6 f[i] - 4 f[i-1] + f[i-2]) / dx^4."""
+    r = torch.roll
+    return (r(f, -2, -1) - 4.0 * r(f, -1, -1) + 6.0 * f - 4.0 * r(f, 1, -1) + r(f, 2, -1)) / (dx**4)

@@ -1,8 +1,9 @@
 """Spectral (FFT) derivatives and periodic filters on the trailing two axes.
 
-Port of ``pdx/ops/spectral.py:18-102``: wavenumber grids, radial low-pass
+Port of ``pdx/ops/spectral.py``: wavenumber grids, radial low-pass
 masks, spectral gradients / Laplacian / biharmonic and the periodic Gaussian
-low-pass, batched over leading axes by one ``torch.fft.fft2`` call. ``pdx``
+low-pass, batched over leading axes by one ``torch.fft.fft2`` call; and the
+1-D derivative and low-pass on the trailing axis (``torch.fft.fft``). ``pdx``
 leaves these to XLA's FFT (no Pallas kernel), so ``torch.fft`` is their
 counterpart here.
 """
@@ -86,3 +87,34 @@ def gaussian_smooth_periodic(f: Tensor, sigma_px: float) -> Tensor:
     KX, KY = spectral_wavenumbers(f.shape[-2], f.shape[-1], 1.0, 1.0, dtype=dtype, device=f.device)
     H = torch.exp(-0.5 * (sigma_px**2) * (KX**2 + KY**2))
     return torch.fft.ifft2(torch.fft.fft2(f) * H).real
+
+
+def _integer_pow(x: Tensor, order: int) -> Tensor:
+    """x ** order by binary exponentiation, in ``jax.lax.integer_pow``'s
+    order of products (``torch.pow`` of a complex tensor goes through
+    exp/log and is not exact for the powers of i k)."""
+    acc = None
+    while order > 0:
+        if order & 1:
+            acc = x if acc is None else acc * x
+        order >>= 1
+        if order > 0:
+            x = x * x
+    return acc if acc is not None else torch.ones_like(x)
+
+
+def spectral_derivative_1d(f: Tensor, L: float, order: int = 1) -> Tensor:
+    """n-th spectral derivative on a periodic 1-D grid of physical length L,
+    on the trailing axis."""
+    n = f.shape[-1]
+    k = 2.0 * math.pi * _fftfreq(n, L / n, f.device)
+    F = torch.fft.fft(f)
+    return torch.fft.ifft(_integer_pow(1j * k, int(order)) * F).real
+
+
+def lowpass_1d(f: Tensor, keep_frac: float) -> Tensor:
+    """Zero the top (1 - keep_frac) share of the 1-D frequencies (in cycles
+    per sample) on the trailing axis."""
+    k = torch.abs(_fftfreq(f.shape[-1], 1.0, f.device))
+    mask = (k <= keep_frac * torch.max(k)).to(f.dtype)
+    return torch.fft.ifft(torch.fft.fft(f) * mask).real

@@ -1,0 +1,235 @@
+"""pdx_torch.pipelines.comprehensive against pdx.pipelines.comprehensive,
+float64, at n_seconds=0.25 (50 frames of 64 x 64 from 2,500 Euler steps),
+all 21 methods on N0_clean, N2_noise and N7_all. ``pdx`` runs once, in a
+module fixture (~15 s).
+
+Tolerances, and why:
+
+* every method's coefficients within 1e-8 of max|coef| (measured <= 2.5e-9,
+  the DMD methods on the noise-free regime; <= 1e-10 elsewhere): both
+  packages simulate, corrupt and draw the same numbers (the corruption suite
+  is the same host scipy code and the legacy global stream is consumed in
+  the same order) and differ only in the last bits of FFTs, SVDs and sums;
+* two methods are round-off lotteries in ``pdx`` itself and are held to
+  finite coefficients only: M04_tv on every regime (50 steps of the
+  reference's TV iteration amplify a change of one ulp in the input to O(1)
+  on these fields: fault F8) and M15_sparse_dmd on the noise-free regimes
+  N0_clean, N3_blur and N4_drift (its percentile picks among modes built on
+  singular values below the 1e-10 floor, which are round-off directions:
+  fault F7);
+* the rankings, with those two methods left out (their averages carry the
+  lotteries), in the same order; ``best_overall`` and ``best_per_noise``
+  equal.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from pdx_torch import __main__ as tmain
+from pdx_torch.pipelines import comprehensive as tc
+
+TOL = 1e-8
+BASE = dict(n_seconds=0.25, noises=("N2_noise", "N7_all"), write_artifacts=False)
+LOTTERY = {"M04_tv": None, "M15_sparse_dmd": {"N0_clean", "N3_blur", "N4_drift"}}  # None: every regime
+
+
+@pytest.fixture(scope="module")
+def jc():
+    """pdx's pipeline, imported by the tests that use it, so that the
+    ``gpu`` test runs on a machine without jax (``pytest --noconftest -m
+    gpu``)."""
+    from pdx.pipelines import comprehensive
+
+    return comprehensive
+
+
+def _lottery(method: str, regime: str) -> bool:
+    return method in LOTTERY and (LOTTERY[method] is None or regime in LOTTERY[method])
+
+
+@pytest.fixture(scope="module")
+def runs(jc):
+    want = jc.run(jc.ComprehensiveConfig(**BASE))
+    want_state = np.random.get_state()
+    got = tc.run(tc.ComprehensiveConfig(**BASE), "cpu")
+    got_state = np.random.get_state()
+    return want, got, want_state, got_state
+
+
+def test_keys_and_layout(runs):
+    want, got, _, _ = runs
+    assert set(got) == set(want)
+    assert got["noise_configs"] == want["noise_configs"] == ["N0_clean", "N2_noise", "N7_all"]
+    assert got["methods"] == want["methods"] and len(got["methods"]) == 21
+    assert got["true_coef"] == want["true_coef"]
+    assert set(got["placement"]) == set(want["placement"]) and set(got["placement"].values()) == {"cpu"}
+    for n in want["results"]:
+        assert list(got["results"][n]) == list(want["results"][n])
+        for m, r in got["results"][n].items():
+            assert set(r) == {"error", "coef", "time"}, (n, m, r)
+
+
+def test_config_fields(jc):
+    assert [(f.name, f.default) for f in dataclasses.fields(tc.ComprehensiveConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(jc.ComprehensiveConfig)]
+
+
+@pytest.mark.parametrize("method", list(tc.METHODS))
+def test_method_matches_pdx(runs, method):
+    want, got, _, _ = runs
+    for n in want["results"]:
+        c = np.asarray(got["results"][n][method]["coef"])
+        cj = np.asarray(want["results"][n][method]["coef"])
+        assert np.isfinite(c).all() and c.shape == (3,)
+        if _lottery(method, n):
+            continue
+        np.testing.assert_allclose(c, cj, rtol=0, atol=TOL * np.abs(cj).max(), err_msg=f"{n}/{method}")
+        np.testing.assert_allclose(got["results"][n][method]["error"], want["results"][n][method]["error"],
+                                   rtol=1e-6, err_msg=f"{n}/{method}")
+
+
+def test_clean_baseline_error(runs):
+    """M01 on N0_clean: 6.094 % in pdx at this size. M09 is M01 (the
+    reference's quirk: every ridge method uses Fourier derivatives) on
+    another subsample draw."""
+    _, got, _, _ = runs
+    clean = got["results"]["N0_clean"]
+    assert abs(clean["M01_baseline"]["error"] - 6.094) < 1e-3
+    assert abs(clean["M09_fourier"]["error"] - clean["M01_baseline"]["error"]) < 0.01
+
+
+def test_rankings_and_best(runs):
+    want, got, _, _ = runs
+
+    def order(out):
+        return [m for m in out["rankings"] if m not in LOTTERY]
+
+    assert order(got) == order(want)
+    assert got["best_overall"] == want["best_overall"] and got["best_overall"] not in LOTTERY
+    assert got["best_per_noise"] == want["best_per_noise"]
+
+
+def test_global_stream_draw_order(runs):
+    """The legacy np.random stream ends in the same state after both runs:
+    run's seed, the corruption suite's reseeds (123, 456) in its order, then
+    every method's draws in visit order (ridge and Huber subsamples, the
+    weak form's consumed draw, the ensemble's bootstraps and members)."""
+    _, _, want_state, got_state = runs
+    assert want_state[0] == got_state[0]
+    np.testing.assert_array_equal(want_state[1], got_state[1])
+    assert want_state[2:] == got_state[2:]
+
+
+def test_batched_equals_sequential_bitwise():
+    """batch_solves=True fits the ridge family as one batch; False fits each
+    method alone, through the same code as a batch of one. Same bits."""
+    kw = dict(n_seconds=0.25, noises=("N2_noise",), write_artifacts=False, n_subsample=5_000)
+    seq = tc.run(tc.ComprehensiveConfig(**kw, batch_solves=False), "cpu")
+    bat = tc.run(tc.ComprehensiveConfig(**kw, batch_solves=True), "cpu")
+    for n in seq["results"]:
+        for m in seq["results"][n]:
+            assert seq["results"][n][m]["coef"] == bat["results"][n][m]["coef"], (n, m)
+    assert list(seq["rankings"]) == list(bat["rankings"])
+
+
+def test_simulate_clean_saves_after_the_update(jc):
+    """Frame k is the state after k * save_every + 1 Euler updates (not u0):
+    against a numpy transcription of the reference's loop and pdx's scan."""
+    cfg = tc.ComprehensiveConfig(n_seconds=0.005, save_every=10, Nx=16, Ny=12)
+    got = tc.simulate_clean(cfg, "cpu").numpy()
+    assert got.shape == (5, 12, 16)  # 'xy' meshgrid: (Ny, Nx)
+    dx = cfg.Lx / cfg.Nx
+    x, y = np.linspace(0, cfg.Lx, cfg.Nx, endpoint=False), np.linspace(0, cfg.Ly, cfg.Ny, endpoint=False)
+    X, Y = np.meshgrid(x, y)
+    u = 0.1 * (np.sin(2 * np.pi * X / cfg.Lx) * np.cos(2 * np.pi * Y / cfg.Ly)
+               + 0.5 * np.sin(4 * np.pi * X / cfg.Lx) * np.sin(4 * np.pi * Y / cfg.Ly))
+
+    def lap(f):
+        return (np.roll(f, -1, 0) + np.roll(f, 1, 0) + np.roll(f, -1, 1) + np.roll(f, 1, 1) - 4 * f) / dx**2
+
+    saved = []
+    for step in range(50):
+        gx = (np.roll(u, -1, 0) - np.roll(u, 1, 0)) / (2 * dx)
+        gy = (np.roll(u, -1, 1) - np.roll(u, 1, 1)) / (2 * dx)
+        l = lap(u)
+        u = np.clip(u + cfg.dt * (-l - lap(l) - 0.5 * (gx**2 + gy**2)), -10, 10)
+        if step % cfg.save_every == 0:
+            saved.append(u)
+    np.testing.assert_allclose(got, np.stack(saved), rtol=0, atol=1e-14 * np.abs(got).max())
+    jcfg = jc.ComprehensiveConfig(n_seconds=0.005, save_every=10, Nx=16, Ny=12)
+    np.testing.assert_allclose(got, np.asarray(jc.simulate_clean(jcfg)), rtol=0, atol=1e-14 * np.abs(got).max())
+
+
+def test_simulate_clean_matches_pdx_at_the_test_size(jc):
+    cfg = dict(n_seconds=0.25)
+    got = tc.simulate_clean(tc.ComprehensiveConfig(**cfg), "cpu").numpy()
+    want = np.asarray(jc.simulate_clean(jc.ComprehensiveConfig(**cfg)))
+    assert got.shape == want.shape == (50, 64, 64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+def test_ensemble_reads_sindy_discovers_defaults(monkeypatch):
+    """The bootstrap members use sindy_discover's margin and subsample size
+    from one named source (fault F3 in pdx: literals repeated there)."""
+    seen = []
+    real = tc._draw_subsample
+    monkeypatch.setattr(tc, "_draw_subsample", lambda *a: seen.append(a) or real(*a))
+    monkeypatch.setattr(tc, "SINDY_N_SUBSAMPLE", 700)
+    monkeypatch.setattr(tc, "SINDY_MARGIN", 2)
+    U = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 12, 12)))
+    np.random.seed(0)
+    coef = tc.ensemble_sindy(U, 1.5, 0.1, n_ensemble=3)
+    assert coef.shape == (3,) and np.isfinite(coef).all()
+    assert len(seen) == 3 and all(a[3:] == (2, 700) for a in seen)
+
+
+def test_unknown_names_raise():
+    with pytest.raises(ValueError, match="unknown methods"):
+        tc.run(tc.ComprehensiveConfig(n_seconds=0.01, methods=("M99",), write_artifacts=False), "cpu")
+    with pytest.raises(ValueError, match="unknown noise"):
+        tc.run(tc.ComprehensiveConfig(n_seconds=0.01, noises=("N9",), write_artifacts=False), "cpu")
+
+
+def test_entry_point_needs_the_card_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tc.run(tc.ComprehensiveConfig(n_seconds=0.01, write_artifacts=False))
+
+
+def test_cli_writes_the_results(tmp_path, capsys):
+    argv = ["comprehensive", "--n-seconds", "0.1", "--methods", "M01_baseline,M10_weak_form,M12_dmd",
+            "--noises", "N2_noise", "--output-dir", str(tmp_path), "--device", "cpu"]
+    assert tmain.main(argv) == 0
+    assert "BEST OVERALL:" in capsys.readouterr().out
+    art = json.loads((tmp_path / "benchmark_results.json").read_text())
+    assert set(art) == {"true_coef", "noise_configs", "placement", "methods", "results", "rankings",
+                        "best_overall", "best_per_noise"}
+    assert art["noise_configs"] == ["N0_clean", "N2_noise"] and len(art["results"]["N2_noise"]) == 3
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_card_matches_cpu(cuda):
+    """The card against the CPU on N0_clean and N2_noise, every method,
+    at the same limits as against pdx."""
+    kw = dict(n_seconds=0.25, noises=("N2_noise",), write_artifacts=False)
+    on_card = tc.run(tc.ComprehensiveConfig(**kw), cuda)
+    on_cpu = tc.run(tc.ComprehensiveConfig(**kw), "cpu")
+    assert set(on_card["placement"].values()) == {"cuda:0"}
+    for n in on_cpu["results"]:
+        for m, r in on_cpu["results"][n].items():
+            c = np.asarray(on_card["results"][n][m]["coef"])
+            assert "error_msg" not in on_card["results"][n][m] and np.isfinite(c).all()
+            if not _lottery(m, n):
+                np.testing.assert_allclose(c, r["coef"], rtol=0, atol=TOL * np.abs(r["coef"]).max(), err_msg=f"{n}/{m}")

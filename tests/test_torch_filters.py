@@ -118,3 +118,94 @@ def test_savgol_time_raises(T, window, match):
         tfl.savgol_time(torch.zeros((T, 3, 3), dtype=torch.float64), window, 2)
     with pytest.raises(ValueError, match=match):
         jfl.savgol_time(jnp.zeros((T, 3, 3)), window, 2)
+
+
+# The comprehensive benchmark's bank: median, the two TV iterations and the
+# separable 3-D Gaussian, float64, at TOL.
+
+
+@pytest.mark.parametrize("size", [1, 3, 5])
+def test_median_filter_2d(size):
+    """The sorted middle of the k^2 shifted views of the symmetric pad:
+    bitwise pdx's and scipy.ndimage.median_filter's (default "reflect")."""
+    from scipy.ndimage import median_filter
+
+    U = np.random.default_rng(size).normal(size=(4, 11, 13))
+    got = tfl.median_filter_2d(torch.from_numpy(U), size).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jfl.median_filter_2d(jnp.asarray(U), size)))
+    np.testing.assert_array_equal(got, np.stack([median_filter(u, size=size) for u in U]))
+    np.testing.assert_array_equal(tfl.median_filter_3x3(torch.from_numpy(U)).numpy(),
+                                  np.asarray(jfl.median_filter_3x3(jnp.asarray(U))))
+
+
+@pytest.mark.parametrize("size", [0, 2, 4])
+def test_median_filter_even_size_raises(size):
+    """Even (and empty) windows have no middle sample; both packages refuse
+    them rather than pick one of the two middles."""
+    with pytest.raises(ValueError, match="odd"):
+        tfl.median_filter_2d(torch.zeros((2, 5, 5), dtype=torch.float64), size)
+    with pytest.raises(ValueError, match="odd"):
+        jfl.median_filter_2d(jnp.zeros((2, 5, 5)), size)
+
+
+def _tv_reference_loop(f, weight, n_iter):
+    """comprehensive_benchmark.py:190-203 transcribed in numpy."""
+    u = f.copy()
+    for _ in range(n_iter):
+        gx = np.roll(u, -1, axis=-2) - u
+        gy = np.roll(u, -1, axis=-1) - u
+        norm = np.sqrt(gx**2 + gy**2 + 1e-8)
+        div = (gx - np.roll(gx, 1, axis=-2)) / norm + (gy - np.roll(gy, 1, axis=-1)) / norm
+        u = f + weight * div
+    return u
+
+
+@pytest.mark.parametrize("n_iter", [1, 2, 3])
+def test_tv_denoise_steps_match_pdx_and_the_reference_loop(n_iter):
+    """The first steps against pdx's jitted scan and the reference's numpy
+    loop at TOL. Over the default 50 steps the iteration amplifies
+    round-off: pdx, numpy and PyTorch part by an ulp in the first step, by
+    ~1e-10 (numpy) to ~1e-7 (pdx) of max|u| after 50 steps on white noise,
+    and by O(1) on the benchmark's KS fields. That is a fault of the
+    reference method (F8), so only the first steps are held."""
+    import jax
+
+    U = np.random.default_rng(n_iter).normal(size=(3, 12, 14))
+    got = tfl.tv_denoise(torch.from_numpy(U), 0.1, n_iter)
+    _close(got, jax.jit(lambda f: jfl.tv_denoise(f, 0.1, n_iter))(jnp.asarray(U)))
+    _close(got, _tv_reference_loop(U, 0.1, n_iter))
+
+
+def test_tv_denoise_reanchors_to_the_input():
+    """Every step is u = f + weight * div(u): two steps are not one step
+    taken again from the first step's output."""
+    U = np.random.default_rng(7).normal(size=(3, 12, 14))
+    one = tfl.tv_denoise(torch.from_numpy(U), 0.1, 1).numpy()
+    two = tfl.tv_denoise(torch.from_numpy(U), 0.1, 2).numpy()
+    _close(torch.from_numpy(two), _tv_reference_loop(U, 0.1, 2))
+    assert np.abs(two - _tv_reference_loop(one, 0.1, 1)).max() > 1e-3
+
+
+@pytest.mark.parametrize("n_iter", [1, 2, 3])
+def test_tv_denoise_curvature(n_iter):
+    """jnp.gradient's derivatives (one-sided first-order edges, unit
+    spacing), no re-anchoring; against pdx and numpy's gradient."""
+    import jax
+
+    U = np.random.default_rng(n_iter + 10).normal(size=(3, 12, 14))
+    got = tfl.tv_denoise_curvature(torch.from_numpy(U), 0.05, n_iter)
+    _close(got, jax.jit(lambda f: jfl.tv_denoise_curvature(f, 0.05, n_iter))(jnp.asarray(U)))
+    img = U.copy()
+    for _ in range(n_iter):
+        gx, gy = np.gradient(img, axis=-2), np.gradient(img, axis=-1)
+        mag = np.sqrt(gx**2 + gy**2) + 1e-8
+        img = img + 0.05 * (np.gradient(gx / mag, axis=-2) + np.gradient(gy / mag, axis=-1))
+    _close(got, img)
+
+
+@pytest.mark.parametrize("sigma_t,sigma_s", [(1.0, 1.5), (0.0, 2.0), (1.5, 0.0)])
+def test_gaussian_filter3d_reflect(sigma_t, sigma_s):
+    U = np.random.default_rng(5).normal(size=(8, 10, 12))
+    got = tfl.gaussian_filter3d_reflect(torch.from_numpy(U), sigma_t, sigma_s)
+    _close(got, jfl.gaussian_filter3d_reflect(jnp.asarray(U), sigma_t, sigma_s))
+    _close(got, gaussian_filter(U, (sigma_t, sigma_s, sigma_s)))

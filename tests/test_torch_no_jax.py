@@ -2,7 +2,8 @@
 __init__ imports jax): neither on import nor while a run is under way (the
 KS-2D dataset / regression branch, the patch ensemble and analyze with
 registration on, transport; in a second process, patch_sindy with ECC and
-with optical flow, and improved_registration)."""
+with optical flow, improved_registration, the comprehensive method matrix
+and sindy1d)."""
 
 import os
 import subprocess
@@ -70,6 +71,14 @@ for method in ("ecc", "optical_flow"):
 out = ir_run(ImprovedRegistrationConfig(data_dir="unused", skip=10, subsample=6, savgol_window=3, savgol_poly=2,
                                         write_artifacts=False), U_raw=stack[:, :64, :64], device="cpu")
 assert out["selected_method"] in ("DIS", "Farneback") and np.isfinite(out["coeffs"]).all(), out
+import pdx_torch.preprocess, pdx_torch.solve.dmd, pdx_torch.sim.ks1d, pdx_torch.pipelines.comprehensive
+import pdx_torch.pipelines.sindy1d
+from pdx_torch.pipelines import comprehensive, sindy1d
+out = comprehensive.run(comprehensive.ComprehensiveConfig(n_seconds=0.05, Nx=24, Ny=24, noises=("N7_all",),
+                                                          n_subsample=500, write_artifacts=False), "cpu")
+assert len(out["results"]["N7_all"]) == 21, out
+out = sindy1d.run(sindy1d.Sindy1dConfig(n_steps=40, scenario="shifted", register=True, regressor="stridge"), "cpu")
+assert np.isfinite(out["coeffs"]).all(), out
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "pdx.")) or m == "pdx")
 assert not bad, bad
 print("clean")

@@ -88,6 +88,15 @@ class TestFd:
         _close(got, jfd.gradient_edge2(jnp.asarray(field), 0.7, axis), atol=1e-12 * np.abs(field).max())
         _close(got, np.gradient(field, 0.7, axis=axis, edge_order=2), atol=1e-12 * np.abs(field).max())
 
+    @pytest.mark.parametrize("dx", [0.5, 0.37])
+    def test_d4_1d_periodic(self, field, dx):
+        """The 1-D periodic fourth difference on the trailing axis."""
+        got = tfd.d4_1d_periodic(torch.from_numpy(field), dx)
+        _close(got, jfd.d4_1d_periodic(jnp.asarray(field), dx), atol=1e-12 * np.abs(_np(got)).max())
+        f = field[0, 0]
+        want = (np.roll(f, -2) - 4 * np.roll(f, -1) + 6 * f - 4 * np.roll(f, 1) + np.roll(f, 2)) / dx**4
+        _close(got[0, 0], want)
+
     def test_reflect_is_reflect101(self):
         """derivs_2d_reflect pads like np.pad(mode="reflect"), not symmetric."""
         f = np.random.default_rng(4).normal(size=(6, 7))

@@ -86,3 +86,25 @@ def test_spectral_dictionaries(field, kind, flag):
         jnames, jterms = jdict.build_dictionary_rich(jnp.asarray(u), 0.5, 0.25, deriv="spectral", spectral_cutoff=0.7, drop_advection=flag)
     assert names == jnames
     _close(terms, jterms)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [50, 51])
+def test_spectral_derivative_1d(order, n):
+    """The powers of i k by repeated products, as jax's integer_pow."""
+    f = np.random.default_rng(n + order).normal(size=(4, n))
+    got = tsp.spectral_derivative_1d(torch.from_numpy(f), 100.0, order)
+    _close(got, jsp.spectral_derivative_1d(jnp.asarray(f), 100.0, order=order))
+
+
+def test_spectral_derivative_1d_of_a_sine():
+    x = np.linspace(0, 2 * np.pi, 64, endpoint=False)
+    got = tsp.spectral_derivative_1d(torch.from_numpy(np.sin(3 * x)), 2 * np.pi, 4).numpy()
+    # round-off of the top bins grows by k^4 (32^4 ~ 1e6): ~3e-12 of the amplitude
+    np.testing.assert_allclose(got, 81 * np.sin(3 * x), atol=1e-10 * 81)
+
+
+@pytest.mark.parametrize("keep_frac", [0.33, 0.5, 1.0])
+def test_lowpass_1d(keep_frac):
+    f = np.random.default_rng(2).normal(size=(5, 40))
+    _close(tsp.lowpass_1d(torch.from_numpy(f), keep_frac), jsp.lowpass_1d(jnp.asarray(f), keep_frac))

@@ -1,7 +1,7 @@
 """Profile the port's real-image pipelines on one CUDA card.
 
-    python tools/torch_patch_profile.py [--pipeline patch|analyze|transport|patch_sindy|improved_registration]
-        [--full] [--out DIR]
+    python tools/torch_patch_profile.py [--pipeline patch|analyze|transport|patch_sindy|improved_registration|
+        comprehensive|sindy1d] [--full] [--out DIR]
 
 ``patch`` (the default) runs ``pdx_torch.pipelines.patch_discovery.run`` on
 ``bench.py``'s stack (``make_stack(51, 512, 640)`` as float64, skip 12,
@@ -16,7 +16,10 @@ registration schedule (``none``, ``ecc``, ``optical_flow`` per patch on the
 compose path, ``optical_flow`` with frame scope) on the real dataset's shape
 read as 8-bit and scaled by 1/255; ``improved_registration`` one warm run of
 the default configuration on the uint16 stack, and one quality sweep alone.
-Tracing is ``torch.profiler`` (CPU and CUDA activities). Prints, per traced
+``comprehensive`` traces ``simulate_clean`` over 1,000 of its Euler steps
+(a full run's 10,000 would trace ~350k launches) and one regime's 21
+methods (N7_all, default size); ``sindy1d`` one warm run of the default
+configuration and one of ``varying_ic`` (default size). Tracing is ``torch.profiler`` (CPU and CUDA activities). Prints, per traced
 window: the host wall, the CUDA kernels launched, their summed device time,
 the device's busy and idle share of the wall, and the ten costliest
 kernels; writes the Chrome trace of the one flow (patch) or of the sweep
@@ -75,8 +78,8 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--pipeline", choices=["patch", "analyze", "transport", "patch_sindy", "improved_registration"],
-                        default="patch")
+    parser.add_argument("--pipeline", choices=["patch", "analyze", "transport", "patch_sindy", "improved_registration",
+                                               "comprehensive", "sindy1d"], default="patch")
     parser.add_argument("--full", action="store_true", help="patch: the real dataset's shape instead of bench.py's stack")
     parser.add_argument("--out", default="outputs/profile")
     args = parser.parse_args()
@@ -93,6 +96,26 @@ def main() -> int:
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
+    if args.pipeline == "comprehensive":
+        from pdx_torch.pipelines import comprehensive as cr
+
+        cfg = cr.ComprehensiveConfig(write_artifacts=False)
+        _window("comprehensive_simulate_1000_steps",
+                lambda: cr.simulate_clean(cr.ComprehensiveConfig(n_seconds=0.1), dev), None, card)
+        U = cr.simulate_clean(cfg, dev)
+        data = torch.as_tensor(cr.corruption_suite(U.cpu().numpy())["N7_all"]).to(dev)
+        dx, dt_frame = cfg.Lx / cfg.Nx, cfg.dt * cfg.save_every
+        methods = cr.build_methods(cfg, dx, dt_frame)
+        _window("comprehensive_one_regime", lambda: cr._run_methods_batched(cfg, methods, data, dx, dt_frame),
+                None, card)
+        return 0
+    if args.pipeline == "sindy1d":
+        from pdx_torch.pipelines import sindy1d as s1
+
+        for label, kw in (("default", {}), ("varying_ic", dict(scenario="varying_ic", regressor="stridge"))):
+            cfg = s1.Sindy1dConfig(**kw)
+            _window(f"sindy1d_{label}", lambda: s1.run(cfg, dev), None, card)
+        return 0
     if args.pipeline == "analyze":
         from pdx_torch.pipelines import analyze as an
 

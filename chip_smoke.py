@@ -222,7 +222,9 @@ PHASE_PEAK_GIB = {"the kernels": 4.7, "the KS-2D paths": 2.9, "the KS-2D card ag
                   # reckoned 1-3 and < 0.1 GiB before the first run (the batched ridge family's Fourier fields,
                   # 14 x 199 x 64 x 64 complex128 = 183 MB each; sindy1d's 2001 x 200 states); each phase run alone
                   # reserved 2.098 and 0.326 GiB, after the earlier phases 3.475 and 1.697 (their cached stacks)
-                  "[comprehensive]": 3.5, "[sindy1d]": 1.7}
+                  "[comprehensive]": 3.5, "[sindy1d]": 1.7,
+                  # run alone, the phase reserved 13.279 GiB (improved_registration's 13.2 is its peak)
+                  "[run_all]": 13.3}
 WAIT_FOR_CARD_S = 700.0  # at most this long in all, waiting for other processes to free the card's memory
 _waited = [0.0]
 
@@ -1380,6 +1382,253 @@ def _sindy1d_phase(dev, card: str, counters: dict) -> None:
           f"{worst_apart:.1e} of max|coef| ({where}; limit 1e-9), the same F1 support scores")
 
 
+def write_tiff(path, frame) -> None:
+    """One uncompressed, single-strip, little-endian grayscale TIFF of an
+    (H, W) uint8 or uint16 frame: the baseline layout lab cameras write and
+    ``pdx_torch.io_host.images._fast_tiff_gray`` decodes (no PIL or cv2
+    needed)."""
+    import struct
+
+    import numpy as np
+
+    frame = np.ascontiguousarray(frame)
+    if frame.ndim != 2 or frame.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"an (H, W) uint8 or uint16 frame, got {frame.shape} {frame.dtype}")
+    h, w = frame.shape
+    data = frame.astype(frame.dtype.newbyteorder("<"), copy=False).tobytes()
+    SHORT, LONG = 3, 4
+    tags = [(256, LONG, w), (257, LONG, h), (258, SHORT, 8 * frame.itemsize), (259, SHORT, 1), (262, SHORT, 1),
+            (273, LONG, 0), (277, SHORT, 1), (278, LONG, h), (279, LONG, len(data)), (284, SHORT, 1)]
+    offset = 8 + 2 + 12 * len(tags) + 4  # header, IFD, then the strip
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHII", tag, typ, 1, offset if tag == 273 else value) for tag, typ, value in tags)
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8) + ifd + struct.pack("<I", 0) + data)
+
+
+def write_tiff_stack(folder, U) -> None:
+    """Frames of U as folder/frame_000.tif, frame_001.tif, ... (sorted names)."""
+    from pathlib import Path
+
+    Path(folder).mkdir(parents=True, exist_ok=True)
+    for i, frame in enumerate(U):
+        write_tiff(Path(folder) / f"frame_{i:03d}.tif", frame)
+
+
+FIGURE_STAGES = ("figures_minimal", "slide3", "method_slide", "comparative_figures", "finalclass_figures",
+                 "presentation_figures", "figures_refresh")
+# what run_all must leave in its output root: the analyze contract, and after the heavy steps the patch
+# ensemble's CSV and report and the registration, patch_sindy and transport outputs
+FAST_ARTIFACTS = ("slides/best_model.json", "slides/models_comparison.json", "slides/best_model_baseline.json")
+HEAVY_ARTIFACTS = ("patch_pde/PATCH_PDE_COEFFS.csv", "patch_pde/PATCH_PDE_REPORT.txt",
+                   "patch_pde/patch_pde_summary.json", "registration/registration_study.json",
+                   "patch_sindy/patch_sindy_results.json", "transport/transport_results.json")
+COEFF_KEYS = ("coeffs", "coefficients", "agg_coeffs")
+
+
+def _coefficients(node) -> list[float]:
+    """Every number held under a coefficient key anywhere in a JSON payload."""
+    import numpy as np
+
+    if isinstance(node, dict):
+        out = []
+        for k, v in node.items():
+            out += [float(c) for c in np.ravel(v)] if k in COEFF_KEYS else _coefficients(v)
+        return out
+    if isinstance(node, list):
+        return [c for v in node for c in _coefficients(v)]
+    return []
+
+
+def _run_all_gates(label: str, status: dict, root, has_mpl: bool, skip_heavy: bool = False) -> int:
+    """Statuses, the artifact contract and finite coefficients; returns how
+    many coefficients were checked."""
+    import csv
+    from pathlib import Path
+
+    from pdx_torch.pipelines.run_all import SKIPPED, list_artifacts
+
+    for stage, st in status.items():
+        want = "ok" if has_mpl or stage not in FIGURE_STAGES else SKIPPED
+        if st != want:
+            raise AssertionError(f"{label}: stage {stage} reads {st!r}, expected {want!r} (matplotlib "
+                                 f"{'installed' if has_mpl else 'missing'})")
+    arts = set(list_artifacts(root))
+    contract = FAST_ARTIFACTS + (() if skip_heavy else HEAVY_ARTIFACTS)
+    missing = [a for a in contract if a not in arts]
+    if missing:
+        raise AssertionError(f"{label}: artifacts {missing} missing from {sorted(arts)}")
+    coeffs = []
+    for a in contract:
+        path = Path(root) / a
+        if a.endswith(".json"):
+            coeffs += _coefficients(json.loads(path.read_text()))
+        elif a.endswith(".csv"):
+            with path.open() as f:
+                coeffs += [float(v) for row in csv.DictReader(f) for k, v in row.items() if k != "term"]
+    bad = [c for c in coeffs if not math.isfinite(c)]
+    if bad or not coeffs:
+        raise AssertionError(f"{label}: {len(bad)} of {len(coeffs)} coefficients not finite")
+    return len(coeffs)
+
+
+def _busy_share(fn) -> tuple[float, float, int, float]:
+    """(host wall in s, device busy share of it, device events, seconds to
+    read the trace) of one call of fn under torch.profiler (CUDA activity
+    only), as tools/torch_patch_profile.py reckons it: one stream, so the
+    device events overlap nothing and their summed time is the busy time.
+    The events are read from the profiler's kineto results as they are:
+    building its event tree for a run's ~350k events took 56 s."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in events) / 1e9
+    return wall, busy / wall, len(events), time.perf_counter() - t0
+
+
+def _run_all_small_card_vs_cpu(dev, card: str, has_mpl: bool) -> None:
+    """run_all(skip_heavy=True) on the card and on the CPU on 16 TIFFs of
+    220 x 220 (the size of pdx's own run_all test, skip 10, subsample 6):
+    the same statuses and selected model, best-model coefficients within
+    1e-5 of max|coef| (the registration-on limit: float32 Farnebäck flows)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from tools.make_synth_stack import make_stack
+
+    from pdx_torch.pipelines.run_all import RunAllConfig, run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "tiffs"
+        write_tiff_stack(data, make_stack(T=16, H=220, W=220))
+        best, status = {}, {}
+        for d in (dev, "cpu"):
+            root = Path(tmp) / str(d)
+            status[str(d)] = run(RunAllConfig(data_dir=str(data), output_root=str(root), max_images=16,
+                                              skip_heavy=True, skip=10, subsample=6), d)
+            _run_all_gates(f"run_all small on {d}", status[str(d)], root, has_mpl, skip_heavy=True)
+            best[str(d)] = json.loads((root / "slides" / "best_model.json").read_text())
+    a, b = best[str(dev)], best["cpu"]
+    ca, cb = np.asarray(a["coeffs"]), np.asarray(b["coeffs"])
+    apart = float(np.abs(ca - cb).max() / np.abs(cb).max()) if ca.shape == cb.shape else math.inf
+    if not (status[str(dev)] == status["cpu"] and a["name"] == b["name"] and apart < 1e-5):
+        raise AssertionError(f"run_all small: card {status[str(dev)]} {a['name']} {ca} vs CPU {status['cpu']} "
+                             f"{b['name']} {cb} ({apart:.1e} of max|coef|, limit 1e-5)")
+    print(f"[small] run_all skip_heavy 16 x 220 x 220 TIFFs: the same statuses {sorted(set(status['cpu'].values()))} "
+          f"and selected model ({a['name']}); best-model coefficients apart by {apart:.1e} of max|coef| (limit 1e-5) "
+          f"({card})")
+
+
+def _run_all_phase(data_dir, dev, card: str, counters: dict) -> None:
+    """Phase 12: the CLI's list-resolutions and doctor as subprocesses, then
+    run_all at the real dataset's shape from the TIFFs in ``data_dir`` (51
+    uncompressed uint16 frames of 1024 x 1280): one cold run (no stack in
+    the process, an empty disk cache), two warm ones and one traced for the
+    busy share; the cold path's parts alone; presentation_flow_data at the
+    real shape; then [small], the card against the CPU."""
+    import importlib.util
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from pdx_torch.io_host import images
+    from pdx_torch.pipelines.run_all import RunAllConfig, list_artifacts, run
+    from pdx_torch.report.comparative import presentation_flow_data
+    from pdx_torch.utils.profiling import StageTimer
+
+    root = Path(__file__).resolve().parent
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    cli = [sys.executable, "-m", "pdx_torch"]
+    res = subprocess.run(cli + ["list-resolutions", "--data-dir", str(data_dir)], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0 or res.stdout.strip() != "1024 x 1280: 51 files":
+        raise AssertionError(f"list-resolutions: rc {res.returncode}, {res.stdout!r} {res.stderr[-2000:]}")
+    print(f"[run_all] python -m pdx_torch list-resolutions: {res.stdout.strip()!r}, rc 0 ({card})")
+    res = subprocess.run(cli + ["doctor"], cwd=root, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0 or "kernels: 4 of 4 loaded" not in res.stdout or f"card 0: {card}" not in res.stdout:
+        raise AssertionError(f"doctor: rc {res.returncode}\n{res.stdout}\n{res.stderr[-2000:]}")
+    print("[run_all] python -m pdx_torch doctor: rc 0 | " + " | ".join(res.stdout.strip().splitlines()) + f" ({card})")
+
+    label = "run_all 51 x 1024 x 1280 uint16 TIFFs, default configuration"
+    with tempfile.TemporaryDirectory() as tmp:
+        out_root = Path(tmp) / "outputs"
+        cfg = RunAllConfig(data_dir=str(data_dir), output_root=str(out_root))
+        os.environ["XDG_CACHE_HOME"] = str(Path(tmp) / "cache")  # the disk cache of decoded stacks: empty
+        images.clear_stack_memcache()
+        walls = []
+        for what in ("cold", "warm", "warm"):
+            for c in counters.values():
+                c.launches = 0
+            timer = StageTimer()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            status = run(cfg, dev, timer)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            images.flush_stack_cache_writes()
+            moved = {n: c.launches for n, c in counters.items()}
+            if any(moved.values()):
+                raise AssertionError(f"{label}: this path launches no kernel, yet {moved}")
+            n_coeffs = _run_all_gates(label, status, out_root, has_mpl)
+            stages = ", ".join(f"{k} {status[k]} {v:.4f} s" for k, v in timer.stages.items())
+            print(f"[run_all] {label} {what}: wall {walls[-1]:.4f} s; stages {stages}; {n_coeffs} coefficients "
+                  f"finite ({card})")
+        n_arts = len(list_artifacts(out_root))
+        traced, busy, n_events, read = _busy_share(lambda: run(cfg, dev))
+        print(f"[run_all] {label}: cold wall {walls[0]:.4f} s, warm walls {walls[1]:.4f}, {walls[2]:.4f} s; one warm "
+              f"run traced: {traced:.4f} s, the device {100 * busy:.1f}% busy ({n_events} device events, the trace "
+              f"read in {read:.1f} s); {n_arts} artifacts; statuses {status} ({card})")
+
+        # the cold path alone: decode, the disk cache's hit, the upload
+        cache = Path(tmp) / "cold_path"
+        t0 = time.perf_counter()
+        U = images.load_images(data_dir, cache=False)
+        decode = time.perf_counter() - t0
+        images.load_images(data_dir, cache_dir=cache)
+        images.flush_stack_cache_writes()
+        images.clear_stack_memcache()
+        t0 = time.perf_counter()
+        hit = np.asarray(images.load_images(data_dir, cache_dir=cache)).sum()  # the mmap read in full
+        from_disk = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = torch.as_tensor(U).to(dev).to(torch.float64)
+        torch.cuda.synchronize()
+        upload = time.perf_counter() - t0
+        if not hit == U.sum():
+            raise AssertionError("the disk cache returned another stack")
+        print(f"[run_all] cold path alone: decode of {U.shape[0]} TIFFs ({U.shape[0] * U[0].size * 2 / 1e6:.1f} MB of "
+              f"uint16 pixels) {decode:.4f} s; disk-cache hit read in full {from_disk:.4f} s; upload of the float32 "
+              f"stack ({U.nbytes / 1e6:.1f} MB) and cast to float64 on the card {upload:.4f} s ({card})")
+        del on_card
+
+        U5 = images.load_images(data_dir, max_images=5)
+        U5 = U5 / (U5.max() + 1e-12)
+        flow = presentation_flow_data(U5, dev)
+        before, after = float(flow["before"].mean()), float(flow["after"].mean())
+        if not (all(np.isfinite(v).all() for v in flow.values()) and flow["fx"].shape == (512, 640)
+                and after < before):
+            raise AssertionError(f"presentation_flow_data: shapes {[v.shape for v in flow.values()]}, mean |diff| "
+                                 f"{before} -> {after}")
+        print(f"[run_all] presentation_flow_data 3 frames at 512 x 640: mean |diff| {before:.6f} -> {after:.6f} after "
+              f"registration; max |flow| {float(np.abs(np.stack([flow['fx'], flow['fy']])).max()):.4f} px ({card})")
+        os.environ.pop("XDG_CACHE_HOME")
+    _run_all_small_card_vs_cpu(dev, card, has_mpl)
+
+
 def main() -> int:
     import os
 
@@ -1642,6 +1891,12 @@ def main() -> int:
     _await_card("[improved_registration]", dev)
     _improved_registration_phase(full, dev, card, counters)
     _phase_memory("[improved_registration]", dev)
+    import tempfile
+
+    tiffs = tempfile.TemporaryDirectory()  # phase 12 reads the stack from disk
+    t0 = time.perf_counter()
+    write_tiff_stack(tiffs.name, full)
+    print(f"[run_all] wrote the stack as 51 uncompressed uint16 TIFFs in {time.perf_counter() - t0:.2f} s ({card})")
     del full
 
     # 10-11. the comprehensive method matrix and sindy1d (no kernel on either path)
@@ -1651,6 +1906,12 @@ def main() -> int:
     _await_card("[sindy1d]", dev)
     _sindy1d_phase(dev, card, counters)
     _phase_memory("[sindy1d]", dev)
+
+    # 12. run_all and the CLI, from TIFFs on disk (no kernel on the path)
+    _await_card("[run_all]", dev)
+    _run_all_phase(tiffs.name, dev, card, counters)
+    _phase_memory("[run_all]", dev)
+    tiffs.cleanup()
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -23,10 +23,15 @@ Usage:
   python -m pdx_torch sindy1d [--scenario clean|noisy|shifted|varying_ic] [--noise-rel 0.05]
       [--derivative spectral|finite] [--denoise none|spectral|gaussian|savgol] [--register]
       [--regressor lasso|stridge|lstsq] [--n-steps 2000]
+  python -m pdx_torch run-all --data-dir DIR [--output-root OUT] [--skip-heavy] [...]
+  python -m pdx_torch list-resolutions [--data-dir DIR] [--pattern '*.tif']
+  python -m pdx_torch doctor
 
 The flags are ``pdx``'s (for ks2d-bench one per ``Ks2dBenchConfig``
-field), plus ``--device`` (default ``cuda``). The run uses the CUDA card and
-fails without one; ``--device cpu`` runs it on the CPU.
+field), plus ``--device`` (default ``cuda``) for every command that
+computes. The run uses the CUDA card and fails without one; ``--device cpu``
+runs it on the CPU. ``doctor`` checks the card, the toolkit and the kernels,
+and exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -143,6 +148,99 @@ def cmd_sindy1d(argv: list[str]) -> int:
     return cmd_sindy1d(argv)
 
 
+def cmd_run_all(argv: list[str]) -> int:
+    from pdx_torch.pipelines.run_all import cmd_run_all
+
+    return cmd_run_all(argv)
+
+
+def cmd_list_resolutions(argv: list[str]) -> int:
+    """Image-resolution audit (reference: scripts/list_image_resolutions.py)."""
+    from pdx_torch.io_host.images import list_image_resolutions
+
+    parser = argparse.ArgumentParser(prog="pdx_torch list-resolutions")
+    parser.add_argument("--data-dir", default="data/Real-Images")
+    parser.add_argument("--pattern", default="*.tif")
+    args = parser.parse_args(argv)
+    hist = list_image_resolutions(args.data_dir, args.pattern)
+    if not hist:
+        print(f"no images matching {args.pattern} in {args.data_dir}")
+        return 1
+    for (h, w), n in sorted(hist.items()):
+        print(f"  {h} x {w}: {n} files")
+    return 0
+
+
+KERNELS = {"K1": "pdx_fused_ks_gram", "K2": "pdx_fused_ks_gram_terms", "K3": "pdx_fused_blockwise_gram",
+           "K4": "pdx_fused_blockwise_gram_terms"}
+
+
+def cmd_doctor(argv: list[str]) -> int:
+    """Environment check of the card: torch and CUDA versions, each card's
+    name and power limit, float64, the TF32 flags (the port keeps both off),
+    nvcc, whether the kernels K1-K4 build and load, and the dispatch and
+    device-to-host latencies. Exits 0 only when a card is visible and the
+    kernels load; never falls back to the CPU."""
+    import os
+    import subprocess
+    import time
+
+    import torch
+
+    argparse.ArgumentParser(prog="pdx_torch doctor").parse_args(argv)
+    print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  cards visible: {torch.cuda.device_count()}")
+    if not torch.cuda.is_available():
+        print("no CUDA card visible: the port's entry points need one (or --device cpu)")
+        return 1
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError) as e:
+        smi = [f"{torch.cuda.get_device_name(i)}, power limit unknown (nvidia-smi: {e})"
+               for i in range(torch.cuda.device_count())]
+    for i, line in enumerate(smi):
+        print(f"card {i}: {line}")
+    dev = torch.device("cuda", 0)
+    x64 = torch.full((4, 4), 0.5, dtype=torch.float64, device=dev)
+    print(f"float64: {'available' if float((x64 @ x64)[0, 0]) == 1.0 else 'WRONG RESULT'}")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    verdict = "off, as the port needs" if not any(tf32) else "ON: coefficient recovery loses accuracy"
+    print(f"TF32: matmul {tf32[0]}, cudnn {tf32[1]} ({verdict})")
+
+    from pdx_torch.ops.kernels import _build
+
+    try:
+        nvcc = _build._nvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60).stdout
+        print(f"nvcc: {nvcc} ({version.strip().splitlines()[-1]})")
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        print(f"nvcc: {e}")
+    out_dir = _build._BUILD / _build.source_hash()
+    try:
+        t0 = time.perf_counter()
+        lib = _build.library()
+        loaded = [k for k, sym in KERNELS.items() if hasattr(lib, sym)]
+        print(f"kernels: {len(loaded)} of {len(KERNELS)} loaded ({', '.join(f'{k} {KERNELS[k]}' for k in loaded)}) "
+              f"in {time.perf_counter() - t0:.2f} s")
+    except Exception as e:  # a failed build is the finding this command reports
+        loaded = []
+        print(f"kernels: build or load failed: {type(e).__name__}: {e}")
+    n_entries = len(os.listdir(out_dir)) if out_dir.is_dir() else 0
+    print(f"build directory: {out_dir} ({n_entries} entries)")
+
+    x = torch.ones((128, 128), device=dev)
+    y = x @ x  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = x @ x
+    torch.cuda.synchronize()
+    print(f"dispatch+sync latency: {(time.perf_counter() - t0) * 1000:.3f} ms")
+    t0 = time.perf_counter()
+    float((y @ x)[0, 0])
+    print(f"device->host read round-trip: {(time.perf_counter() - t0) * 1000:.3f} ms")
+    return 0 if len(loaded) == len(KERNELS) else 1
+
+
 COMMANDS = {
     "ks2d-bench": cmd_ks2d_bench,
     "ks2d-bench-json": cmd_json,
@@ -153,6 +251,9 @@ COMMANDS = {
     "improved-registration": cmd_improved_registration,
     "comprehensive": cmd_comprehensive,
     "sindy1d": cmd_sindy1d,
+    "run-all": cmd_run_all,
+    "list-resolutions": cmd_list_resolutions,
+    "doctor": cmd_doctor,
 }
 
 

@@ -1,13 +1,18 @@
-"""Figures of the ``analyze`` pipeline (port of ``pdx/report/figures.py:27-75,
-265-416``): MODEL_COMPARISON.png from the artifact contract, and FIG4's
-qualitative rollout snapshots.
+"""Figure and slide generators of the artifact contract (port of
+``pdx/report/figures.py``): MODEL_COMPARISON.png, the minimal deck
+(FIG1-3 and the reference's FIG_DATA_FRAMES / FIG_BEST_MODEL_COEFFS), the
+summary and method slides, the final-report figures, and FIG4's qualitative
+rollout snapshots. All but FIG4 read only the artifact files
+(best_model.json, models_comparison.json) and raise the reference's "run
+analyze first" contract message without them (create_method_slide.py:33-39).
 
 ``pdx``'s ``qualitative_rollout_snapshots`` computes and draws in one call;
-here it is two: :func:`fig4_snapshot_data` runs the rollouts and the error
-maps on the stack's device and returns host arrays, and
-:func:`draw_fig4_snapshots` only draws them, so ``analyze`` keeps device
+here it is the composition of two: :func:`fig4_snapshot_data` runs the
+rollouts and the error maps on the stack's device and returns host arrays,
+and :func:`draw_fig4_snapshots` only draws them, so ``analyze`` keeps device
 faults out of the guard it puts around the drawing. matplotlib is imported
-by the drawing functions alone, so this module imports without it.
+by the drawing functions alone, so this module imports without it; without
+it they raise ``ImportError``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from pdx_torch.report.pipeline_figures import _pyplot
 from pdx_torch.report.render_cache import cached_render
 from pdx_torch.validate.rollout import ANALYZE13, fig4_rollout_bundle
 
@@ -26,15 +32,6 @@ from pdx_torch.validate.rollout import ANALYZE13, fig4_rollout_bundle
 class NothingToDraw(RuntimeError):
     """FIG4 lacks Model 3 or Model 4 or a valid horizon: no figure, as in
     ``pdx``, which skips it."""
-
-
-def _pyplot():
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
 
 
 def _load_contract(slides_dir: Path) -> tuple[dict, dict]:
@@ -187,4 +184,265 @@ def draw_fig4_snapshots(slides_dir: str | Path, data: dict) -> list[Path]:
             plt.close(fig2)
 
     cached_render("fig4_snapshots", [maps, curve4_full, curve3_full, ks_valid, (vmin, vmax)], outs, _render)
+    return outs
+
+
+def qualitative_rollout_snapshots(
+    slides_dir: str | Path,
+    u,
+    results: list[dict],
+    test_start: int,
+    test_stop: int,
+    dt: float,
+    dx: float,
+    dy: float,
+    k_default: int = 10,
+) -> list[Path]:
+    """FIG4 qualitative rollout snapshots (analyze_results.py:1104-1230),
+    ``pdx``'s signature: :func:`fig4_snapshot_data` on ``u``'s device (a
+    numpy array runs on the CPU), then :func:`draw_fig4_snapshots`."""
+    data = fig4_snapshot_data(torch.as_tensor(u), results, test_start, test_stop, dt, dx, dy, k_default)
+    return draw_fig4_snapshots(slides_dir, data)
+
+
+def generate_presentation_figures_minimal(
+    slides_dir: str | Path, data_dir: str | Path | None = None
+) -> list[Path]:
+    """FIG1 (model R2/rollout comparison), FIG2 (rollout error growth),
+    FIG3 (best-model coefficients) — the minimal deck assets — plus the
+    reference's exact asset names FIG_DATA_FRAMES.png (3 raw frames, needs
+    ``data_dir``) and FIG_BEST_MODEL_COEFFS.png
+    (generate_presentation_figures_minimal.py:86,152)."""
+    slides_dir = Path(slides_dir)
+    best, comp = _load_contract(slides_dir)
+    plt = _pyplot()
+    outs = []
+
+    # FIG_DATA_FRAMES: first/middle/last raw frames (reference :40-87)
+    if data_dir is not None:
+        fig = None
+        try:
+            from pdx_torch.io_host.images import load_images
+
+            U = load_images(data_dir, max_images=51)
+            idxs = [0, U.shape[0] // 2, U.shape[0] - 1]
+            fig, axes = plt.subplots(1, 3, figsize=(13, 4.5))
+            for ax, i in zip(axes, idxs):
+                ax.imshow(U[i], cmap="gray")
+                ax.set_title(f"Frame {i}", fontsize=12, fontweight="bold")
+                ax.axis("off")
+            fig.suptitle("Raw laser-matter frames", fontsize=14, fontweight="bold")
+            plt.tight_layout()
+            p = slides_dir / "FIG_DATA_FRAMES.png"
+            plt.savefig(p, dpi=150, bbox_inches="tight")
+            outs.append(p)
+        except Exception as e:
+            # skip-and-continue parity with the reference: a bad data dir or
+            # an undecodable frame must not abort the artifact-only assets,
+            # but say so instead of hiding it
+            import warnings
+
+            warnings.warn(f"FIG_DATA_FRAMES skipped: {type(e).__name__}: {e}")
+        finally:
+            if fig is not None:
+                plt.close(fig)
+
+    # FIG1: model comparison (R2 + rollout nRMSE)
+    models = comp["models"]
+    names = [m["name"].split(":")[0] for m in models]
+    r2s = [m["r2_test"] for m in models]
+    ks = comp.get("rollout_steps", [])
+    k_eval = ks[-1] if ks else None
+    rolls = [(m.get("rollout", {}).get("test", {}) or {}).get("nrmse", np.nan) for m in models]
+    fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(13, 4.5))
+    ax1.bar(names, r2s, color="#2a6fdb", edgecolor="black")
+    ax1.set_ylabel("Test R²")
+    ax1.set_title("Fit quality")
+    ax1.tick_params(axis="x", rotation=30)
+    ax2.bar(names, rolls, color="#d9534f", edgecolor="black")
+    ax2.set_ylabel(f"Rollout nRMSE (k={k_eval})")
+    ax2.set_title("Dynamical stability (lower is better)")
+    ax2.tick_params(axis="x", rotation=30)
+    plt.tight_layout()
+    p = slides_dir / "FIG1_MODEL_COMPARISON.png"
+    plt.savefig(p, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    outs.append(p)
+
+    # FIG2: rollout error growth curves
+    fig, ax = plt.subplots(figsize=(7, 4.5))
+    for m in models:
+        curve = m.get("rollout_curve_test", {}).get("metrics", {})
+        if not curve:
+            continue
+        steps = sorted(int(k) for k in curve.keys())
+        vals = [curve[str(k)].get("nrmse", np.nan) for k in steps]
+        ax.plot(steps, vals, marker="o", label=m["name"].split(":")[0])
+    ax.set_yscale("log")
+    ax.set_xlabel("Horizon k")
+    ax.set_ylabel("Rollout nRMSE")
+    ax.set_title("Rollout error growth over horizon k")
+    ax.grid(True, alpha=0.25)
+    ax.legend(frameon=False, fontsize=8)
+    plt.tight_layout()
+    p = slides_dir / "FIG2_ROLLOUT_CURVES.png"
+    plt.savefig(p, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    outs.append(p)
+
+    # FIG3: best-model coefficients (also saved under the reference's
+    # FIG_BEST_MODEL_COEFFS.png name for listing parity)
+    fig, ax = plt.subplots(figsize=(7, 4.5))
+    coeffs = np.asarray(best["coeffs"], dtype=float)
+    ax.bar(best["terms"], coeffs, color="#2aa84a", edgecolor="black")
+    ax.axhline(0, color="black", linewidth=1)
+    ax.set_title(f"{best['name']}\n{best['equation']}")
+    ax.tick_params(axis="x", rotation=30)
+    plt.tight_layout()
+    for name in ("FIG3_BEST_MODEL.png", "FIG_BEST_MODEL_COEFFS.png"):
+        p = slides_dir / name
+        plt.savefig(p, dpi=150, bbox_inches="tight")
+        outs.append(p)
+    plt.close(fig)
+
+    outs.append(model_comparison_figure(slides_dir))
+    return outs
+
+
+def create_simple_slide3(slides_dir: str | Path) -> Path:
+    """Summary slide: equation + headline metrics (create_simple_slide3.py),
+    as SLIDE3_RESULTS.png, SLIDE3_SIMPLE_PDE_Results.png and
+    SLIDE3_MINIMAL_PDE_Results.png (:157,176)."""
+    slides_dir = Path(slides_dir)
+    best, _comp = _load_contract(slides_dir)
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(12, 6.5))
+    ax.axis("off")
+    ax.text(0.5, 0.85, "Discovered PDE", ha="center", fontsize=22, fontweight="bold")
+    ax.text(0.5, 0.68, best["equation"], ha="center", fontsize=15, family="monospace",
+            bbox=dict(boxstyle="round", facecolor="#eef4ff"))
+    rows = [
+        ("Model", best["name"]),
+        ("Test R²", f"{best['r2']:.4f}"),
+        ("Test RMSE", f"{best['rmse']:.4f}"),
+        ("nRMSE", f"{best['nrmse']:.3f}"),
+        ("Correlation", f"{best['corr']:.3f}"),
+        ("One-step RMSE", f"{best['one_step_rmse']:.4f}"),
+        ("Active terms", f"{best['n_active']}/{best['n_total']}"),
+    ]
+    for i, (k, v) in enumerate(rows):
+        ax.text(0.3, 0.52 - 0.06 * i, k, ha="right", fontsize=12, fontweight="bold")
+        ax.text(0.33, 0.52 - 0.06 * i, str(v), ha="left", fontsize=12)
+    out = slides_dir / "SLIDE3_RESULTS.png"
+    for name in ("SLIDE3_RESULTS.png", "SLIDE3_SIMPLE_PDE_Results.png"):
+        plt.savefig(slides_dir / name, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+
+    fig2, ax2 = plt.subplots(figsize=(12, 6.5))
+    ax2.axis("off")
+    ax2.text(0.5, 0.70, "Discovered PDE (best model)", ha="center", fontsize=24,
+             fontweight="bold", transform=ax2.transAxes)
+    ax2.text(0.5, 0.48, best["equation"], ha="center", fontsize=16,
+             family="monospace", transform=ax2.transAxes)
+    sp = (best.get("spatial_holdout") or {}).get("test") or {}
+    sp_tb = (best.get("spatial_holdout_top_bottom") or {}).get("test") or {}
+    ax2.text(
+        0.5, 0.18,
+        f"time R²={best['r2']:.3f}  |  space R² LR/TB="
+        f"{sp.get('r2', float('nan')):.3f}/{sp_tb.get('r2', float('nan')):.3f}",
+        ha="center", fontsize=13, color="#333333", transform=ax2.transAxes,
+    )
+    plt.savefig(slides_dir / "SLIDE3_MINIMAL_PDE_Results.png", dpi=150, bbox_inches="tight")
+    plt.close(fig2)
+    return out
+
+
+def create_method_slide(slides_dir: str | Path) -> Path:
+    """Pipeline-methodology slide (create_method_slide.py), as
+    SLIDE_METHOD.png and the reference's SLIDE_METHOD_PIPELINE.png."""
+    slides_dir = Path(slides_dir)
+    best, _comp = _load_contract(slides_dir)
+    plt = _pyplot()
+    stages = [
+        "TIFF frames",
+        "Downsample +\nGaussian denoise",
+        "Optical-flow\nregistration",
+        "Derivatives +\nterm library Θ(u)",
+        "STRidge sparse\nregression",
+        "Rollout / holdout\nvalidation",
+    ]
+    fig, ax = plt.subplots(figsize=(13, 4.5))
+    ax.axis("off")
+    n = len(stages)
+    for i, s in enumerate(stages):
+        x = (i + 0.5) / n
+        ax.text(x, 0.6, s, ha="center", va="center", fontsize=11,
+                bbox=dict(boxstyle="round,pad=0.6", facecolor="#e8f0e8", edgecolor="black"))
+        if i < n - 1:
+            ax.annotate("", xy=((i + 1.07) / n, 0.6), xytext=((i + 0.93) / n, 0.6),
+                        arrowprops=dict(arrowstyle="->", lw=1.5))
+    ax.text(0.5, 0.15, f"Selected: {best['name']}   |   {best['equation']}", ha="center",
+            fontsize=11, family="monospace")
+    ax.set_title("PDE discovery methodology", fontsize=16, fontweight="bold")
+    out = slides_dir / "SLIDE_METHOD.png"
+    for name in ("SLIDE_METHOD.png", "SLIDE_METHOD_PIPELINE.png"):
+        plt.savefig(slides_dir / name, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    return out
+
+
+def create_final_figures(slides_dir: str | Path) -> list[Path]:
+    """Final-report figures: the coefficient heatmap across models
+    (FINAL_COEFF_MATRIX.png) and the test-metric table
+    (FINAL_METRICS_TABLE.png)."""
+    slides_dir = Path(slides_dir)
+    _best, comp = _load_contract(slides_dir)
+    plt = _pyplot()
+    models = comp["models"]
+    outs = []
+
+    all_terms = sorted({t for m in models for t in m["terms"]})
+    M = np.zeros((len(models), len(all_terms)))
+    for i, m in enumerate(models):
+        for t, c in zip(m["terms"], m["coeffs"]):
+            M[i, all_terms.index(t)] = c
+    fig, ax = plt.subplots(figsize=(12, 5))
+    vmax = np.abs(M).max() + 1e-12
+    im = ax.imshow(M, cmap="RdBu_r", vmin=-vmax, vmax=vmax, aspect="auto")
+    ax.set_xticks(range(len(all_terms)))
+    ax.set_xticklabels(all_terms, rotation=45, ha="right")
+    ax.set_yticks(range(len(models)))
+    ax.set_yticklabels([m["name"].split(":")[0] for m in models])
+    fig.colorbar(im, ax=ax, label="coefficient")
+    ax.set_title("Coefficients across model families")
+    plt.tight_layout()
+    p = slides_dir / "FINAL_COEFF_MATRIX.png"
+    plt.savefig(p, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    outs.append(p)
+
+    fig, ax = plt.subplots(figsize=(12, 3.5))
+    ax.axis("off")
+    cols = ["Model", "R²", "RMSE", "nRMSE", "corr", "one-step", "active"]
+    cells = [
+        [
+            m["name"].split(":")[0],
+            f"{m['r2_test']:.4f}",
+            f"{m['rmse_test']:.5f}",
+            f"{m['nrmse_test']:.3f}",
+            f"{m['corr_test']:.3f}",
+            f"{m['one_step_rmse']:.5f}",
+            f"{m['n_active']}/{m['n_total']}",
+        ]
+        for m in models
+    ]
+    table = ax.table(cellText=cells, colLabels=cols, loc="center")
+    table.auto_set_font_size(False)
+    table.set_fontsize(9)
+    table.scale(1.0, 1.4)
+    ax.set_title("Model comparison (test)", fontweight="bold")
+    p = slides_dir / "FINAL_METRICS_TABLE.png"
+    plt.savefig(p, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    outs.append(p)
     return outs

@@ -137,3 +137,21 @@ def test_artifact_writers_match_pdx(tmp_path):
     assert (tmp_path / "port.json").read_text() == (tmp_path / "pdx.json").read_text()
     tart.write_json(tmp_path / "t.json", {"s": torch.tensor(2.5), "v": torch.arange(3.0)})
     assert json.loads((tmp_path / "t.json").read_text()) == {"s": 2.5, "v": [0.0, 1.0, 2.0]}
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_smoke_tiff_writer_decodes_through_both_readers(tmp_path, dtype):
+    """chip_smoke.write_tiff (for machines without PIL or cv2) writes what
+    _fast_tiff_gray and PIL both read back as the written frame."""
+    from chip_smoke import write_tiff
+
+    frame = np.random.default_rng(1).integers(0, np.iinfo(dtype).max, size=(17, 23), dtype=dtype)
+    path = tmp_path / "frame.tif"
+    write_tiff(path, frame)
+    with PIL.open(path) as im:
+        by_pil = np.asarray(im)
+    for got in (tim._fast_tiff_gray(path), jim._fast_tiff_gray(path), by_pil):
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(got, frame)
+    with pytest.raises(ValueError, match="uint8 or uint16"):
+        write_tiff(path, frame.astype(np.float32))

@@ -3,7 +3,9 @@ __init__ imports jax): neither on import nor while a run is under way (the
 KS-2D dataset / regression branch, the patch ensemble and analyze with
 registration on, transport; in a second process, patch_sindy with ECC and
 with optical flow, improved_registration, the comprehensive method matrix
-and sindy1d)."""
+and sindy1d). In a third, with matplotlib made unimportable, the report
+modules and run_all import, and run_all(skip_heavy=True) marks every figure
+stage skipped and runs the rest."""
 
 import os
 import subprocess
@@ -22,6 +24,7 @@ import pdx_torch.ops.linalg, pdx_torch.solve.stridge, pdx_torch.solve.robust, pd
 import pdx_torch.preprocess, pdx_torch.interop, pdx_torch.library.localpoly, pdx_torch.ops.metrics
 import pdx_torch.utils.hostmem, pdx_torch.io_host.images, pdx_torch.io_host.artifacts
 import pdx_torch.register.farneback, pdx_torch.pipelines.patch_discovery, pdx_torch.report.pipeline_figures
+import pdx_torch.pipelines.run_all, pdx_torch.report.comparative
 import chip_smoke
 from pdx_torch.pipelines.ks2d_bench import Ks2dBenchConfig, run
 small = dict(Nx=16, Ny=16, n_seconds=0.05, n_sample=1500)
@@ -85,6 +88,32 @@ print("clean")
 """
 
 
+PROBE_NO_MATPLOTLIB = """
+import contextlib, io, os, sys, tempfile
+from pathlib import Path
+sys.modules["matplotlib"] = None  # every import of matplotlib now raises ImportError
+import pdx_torch.report.figures, pdx_torch.report.comparative, pdx_torch.report.pipeline_figures
+from pdx_torch.pipelines.run_all import SKIPPED, RunAllConfig, run
+from chip_smoke import FIGURE_STAGES, write_tiff_stack
+from tools.make_synth_stack import make_stack
+with tempfile.TemporaryDirectory() as tmp:
+    os.environ["XDG_CACHE_HOME"] = tmp + "/xdg"
+    write_tiff_stack(tmp + "/tiffs", make_stack(T=16, H=96, W=96))
+    with contextlib.redirect_stdout(io.StringIO()) as said:  # analyze says which of its figures it skipped
+        status = run(RunAllConfig(data_dir=tmp + "/tiffs", output_root=tmp + "/out", max_images=16,
+                                  skip_heavy=True, skip=4, subsample=4), device="cpu")
+    assert "(skipped model comparison figure" in said.getvalue(), said.getvalue()
+    figures = [s for s in status if s in FIGURE_STAGES]
+    assert list(status) == ["analyze"] + figures and len(figures) == 6, status
+    assert status["analyze"] == "ok" and all(status[s] == SKIPPED for s in figures), status
+    assert (Path(tmp) / "out" / "slides" / "best_model.json").exists()
+bad = sorted(m for m in sys.modules if m in ("jax", "pdx") or m.startswith(("jax.", "jaxlib", "pdx.", "matplotlib."))
+             or (m == "matplotlib" and sys.modules[m] is not None))
+assert not bad, bad
+print("clean")
+"""
+
+
 def _probe_is_clean(probe: str) -> None:
     # one intra-op thread: the probe checks imports, and beside the other test
     # workers a many-threaded run of small ops spends its time waiting
@@ -102,3 +131,7 @@ def test_port_imports_no_jax():
 
 def test_registration_studies_import_no_jax():
     _probe_is_clean(PROBE_STUDIES)
+
+
+def test_run_all_without_matplotlib_skips_only_the_figures():
+    _probe_is_clean(PROBE_NO_MATPLOTLIB)

@@ -136,7 +136,17 @@ Phases, each of which exits non-zero on failure:
    ``varying_ic_data`` alone; gates: finite coefficients, clean STRidge
    within 1.1 x pdx's worst error on the CPU, registration lowering the
    shifted data's error, no kernel launched. Then the card against the CPU
-   at n_steps=400, every configuration, within 1e-9 of max|coef|.
+   at n_steps=400, every configuration, within 1e-9 of max|coef|;
+12. ``[run_all]``: ``pipelines.run_all.run`` from the stack written as 51
+   TIFFs, with the CLI's list-resolutions and doctor as subprocesses (see
+   ``_run_all_phase``);
+13. ``[mesh]``: the multi-device mesh (``pdx_torch.shard``) over every card,
+   or 4 virtual shards of the one card: ks2d_bench's sample-sharded Gram,
+   the patch axis of the patch ensemble and of patch_sindy, comprehensive's
+   regime round-robin and split ridge family, each with the mesh on and off
+   (warm walls in turns, median of 3, recorded and not claimed; coefficients
+   within tests/test_torch_shard.py's limits; n_shard_devices the mesh's
+   size), and ``shard.dryrun.dryrun_multichip`` over the mesh.
 
 Before each phase from 2 on, the script waits (at most 700 s in all) until
 the card has that phase's peak memory and 1 GiB free, in case another
@@ -224,7 +234,10 @@ PHASE_PEAK_GIB = {"the kernels": 4.7, "the KS-2D paths": 2.9, "the KS-2D card ag
                   # reserved 2.098 and 0.326 GiB, after the earlier phases 3.475 and 1.697 (their cached stacks)
                   "[comprehensive]": 3.5, "[sindy1d]": 1.7,
                   # run alone, the phase reserved 13.279 GiB (improved_registration's 13.2 is its peak)
-                  "[run_all]": 13.3}
+                  "[run_all]": 13.3,
+                  # reckoned 5 GiB before the first run (patch_sindy's float64 stack and its 30 patch sequences
+                  # padded to 32, 0.86 GB, copied by the padding); run alone, the phase reserved 6.242 GiB
+                  "[mesh]": 6.3}
 WAIT_FOR_CARD_S = 700.0  # at most this long in all, waiting for other processes to free the card's memory
 _waited = [0.0]
 
@@ -1629,6 +1642,128 @@ def _run_all_phase(data_dir, dev, card: str, counters: dict) -> None:
     _run_all_small_card_vs_cpu(dev, card, has_mpl)
 
 
+def _on_off(label: str, run, counters: dict, card: str) -> tuple[dict, dict]:
+    """``run(mode)`` with the mesh "off" once (a warm-up), then off and on in
+    turns three times, each call timed on the host clock and ended by a
+    synchronize, every launch counter at 0 before them: prints both warm
+    walls (median of 3) and returns the last (off, on) results."""
+    import torch
+
+    run("off")
+    walls, out = {"off": [], "on": []}, {}
+    for c in counters.values():
+        c.launches = 0
+    for _ in range(3):
+        for mode in ("off", "on"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[mode] = run(mode)
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+    moved = {n: c.launches for n, c in counters.items()}
+    if any(moved.values()):
+        raise AssertionError(f"{label}: this path launches no kernel, yet {moved}")
+    off, on = (statistics.median(walls[m]) for m in ("off", "on"))
+    print(f"[mesh] {label}: warm wall off {_wall_text(walls['off'])}, on {_wall_text(walls['on'])}; on - off "
+          f"{on - off:+.4f} s ({100 * (on - off) / off:+.1f}%; recorded, not claimed) ({card})")
+    return out["off"], out["on"]
+
+
+def _held(label: str, on, off, rtol: float, atol: float, card: str) -> None:
+    """Coefficients with the mesh on against off, within (rtol, atol)."""
+    import numpy as np
+
+    on, off = np.asarray(on, dtype=float), np.asarray(off, dtype=float)
+    np.testing.assert_allclose(on, off, rtol=rtol, atol=atol, err_msg=label)
+    print(f"[mesh] {label}: coefficients on against off apart by at most {np.abs(on - off).max():.3e} "
+          f"(rtol {rtol:g}, atol {atol:g}) ({card})")
+
+
+def _mesh_phase(full, dev, card: str, counters: dict) -> None:
+    """Phase 13: the multi-device mesh (``pdx_torch.shard``) at full size.
+    The mesh holds every card when there are more than one, else 4 virtual
+    shards of ``dev``. With the mesh on and off, warm walls in turns (median
+    of 3) and the coefficients against each other, of: ks2d_bench at its
+    default size, float64, solver "gram" without the grid (the standard fit
+    takes the sample-sharded Gram); the patch ensemble on ``full`` (51 x
+    1024 x 1280 uint16) with registration off (the patch axis is split; the
+    chain, which is not, is phase 5's); patch_sindy without registration on
+    the same stack read as 8-bit / 255 (the patch axis split); comprehensive
+    at the card-against-CPU size of phase 10 (regimes round-robin over the
+    slots, the ridge family split over them; "off" is multi_device=False);
+    then dryrun_multichip over the mesh. Gates: the limits of
+    tests/test_torch_shard.py, n_shard_devices equal to the mesh's size with
+    the mesh on and 1 off, the regimes over min(regimes, slots) slots."""
+    import numpy as np
+    import torch
+
+    from pdx_torch.pipelines import comprehensive as cr
+    from pdx_torch.pipelines import ks2d_bench as kb
+    from pdx_torch.pipelines import patch_discovery as pd
+    from pdx_torch.pipelines import patch_sindy as ps
+    from pdx_torch.shard.dryrun import dryrun_mesh, dryrun_multichip
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count() if torch.cuda.device_count() > 1 else 4
+    mesh = dryrun_mesh(n, dev)  # every card, or 4 virtual shards of the one card
+    print(f"[mesh] {n} slots on {len(set(mesh.devices))} distinct card(s): "
+          f"{[mesh.slot_name(i) for i in range(n)]} ({card})")
+
+    label = "ks2d_bench 100x100, 2000 steps, float64, solver gram, no grid"
+    off, on = _on_off(label, lambda m: kb.run(kb.Ks2dBenchConfig(solver="gram", mesh=m), dev, mesh), counters, card)
+    _held(label, on["coeffs"], off["coeffs"], 1e-9, 1e-12, card)
+    worst = max(v["rel_err_pct"] for v in on["gt_errors"].values())
+    if not worst < 1.0:
+        raise AssertionError(f"{label}: recovery degraded with the mesh on: {on['gt_errors']}")
+
+    label = "patch ensemble 51x1024x1280 uint16, registration off"
+    cfg = pd.PatchDiscoveryConfig(data_dir="unused", registration=False, write_artifacts=False)
+    off, on = _on_off(label, lambda m: pd.run(dataclasses.replace(cfg, mesh=m), U_raw=full, device=dev, mesh=mesh),
+                      counters, card)
+    _held(label, on["patch_coeffs"], off["patch_coeffs"], 1e-10, 1e-13, card)
+    if (on["n_shard_devices"], off["n_shard_devices"]) != (n, 1):
+        raise AssertionError(f"{label}: n_shard_devices {on['n_shard_devices']} on, {off['n_shard_devices']} off")
+    print(f"[mesh] {label}: {on['n_patches']} patches, n_shard_devices {on['n_shard_devices']} on, "
+          f"{off['n_shard_devices']} off ({card})")
+
+    label = "patch_sindy 51x1024x1280 u8/255, no registration"
+    f255 = (full >> 8).astype(np.uint8) / 255.0
+    f255.setflags(write=False)
+    cfg = ps.PatchSindyConfig(data_dir="unused", write_artifacts=False)
+    off, on = _on_off(label, lambda m: ps.run(dataclasses.replace(cfg, mesh=m), U_raw=f255, device=dev, mesh=mesh),
+                      counters, card)
+    _held(label, on["patch_coeffs"], off["patch_coeffs"], 1e-7, 1e-9, card)
+    _held(label + ", ensemble", on["coeffs"], off["coeffs"], 1e-7, 1e-9, card)
+    if (on["n_shard_devices"], off["n_shard_devices"]) != (n, 1):
+        raise AssertionError(f"{label}: n_shard_devices {on['n_shard_devices']} on, {off['n_shard_devices']} off")
+    print(f"[mesh] {label}: {on['n_patches']} patches, n_shard_devices {on['n_shard_devices']} on, "
+          f"{off['n_shard_devices']} off ({card})")
+    del f255
+
+    label = "comprehensive n_seconds=0.25, 4 regimes x 21 methods"
+    off, on = _on_off(label, lambda m: cr.run(cr.ComprehensiveConfig(**COMP_SMALL, multi_device=m == "on"), dev,
+                                              mesh=mesh), counters, card)
+    cells = [(reg, m) for reg in off["results"] for m in off["results"][reg]
+             if m != F8_METHOD and (m, reg) not in F7_CELLS]
+    for reg, m in cells:
+        c_off = np.asarray(off["results"][reg][m]["coef"])
+        held = np.abs(np.asarray(on["results"][reg][m]["coef"]) - c_off).max() <= 1e-8 * np.abs(c_off).max()
+        if not held or "error_msg" in on["results"][reg][m]:
+            raise AssertionError(f"{label}: {reg}/{m} on {on['results'][reg][m]} against off {off['results'][reg][m]}")
+    apart = max(np.abs(np.asarray(on["results"][r][m]["coef"]) - np.asarray(off["results"][r][m]["coef"])).max()
+                for r, m in cells)
+    slots = set(on["placement"].values())
+    if len(slots) != min(len(on["placement"]), n) or set(off["placement"].values()) != {str(dev)}:
+        raise AssertionError(f"{label}: placement on {on['placement']}, off {off['placement']}")
+    print(f"[mesh] {label}: every method on against off apart by at most {apart:.3e} (limit 1e-8 of max|coef|; "
+          f"M04 and M15 on N0/N3 left out, F8 / F7); placement on {on['placement']} ({card})")
+
+    t0 = time.perf_counter()
+    summary = dryrun_multichip(n, dev)
+    print(f"[mesh] dryrun_multichip({n}) {time.perf_counter() - t0:.2f} s: {summary} ({card})")
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main() -> int:
     import os
 
@@ -1897,7 +2032,6 @@ def main() -> int:
     t0 = time.perf_counter()
     write_tiff_stack(tiffs.name, full)
     print(f"[run_all] wrote the stack as 51 uncompressed uint16 TIFFs in {time.perf_counter() - t0:.2f} s ({card})")
-    del full
 
     # 10-11. the comprehensive method matrix and sindy1d (no kernel on either path)
     _await_card("[comprehensive]", dev)
@@ -1912,6 +2046,12 @@ def main() -> int:
     _run_all_phase(tiffs.name, dev, card, counters)
     _phase_memory("[run_all]", dev)
     tiffs.cleanup()
+
+    # 13. the multi-device mesh, with it on and off (no kernel on these paths)
+    _await_card("[mesh]", dev)
+    _mesh_phase(full, dev, card, counters)
+    _phase_memory("[mesh]", dev)
+    del full
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -104,8 +104,13 @@ def build_weakform_dataset(
     motion_clip_px: float | None = None,
     dictionary: str = "true",
     operator: str = "spectral",
+    phi_rows: slice | Tensor | None = None,
 ) -> tuple[list[str], Tensor, Tensor]:
     """Returns (names, X[(T-1)*P, p], y[(T-1)*P]) on U's device.
+
+    ``phi_rows`` keeps only those test functions (P of them, in that
+    order): one shard of the test-function axis, as
+    :func:`pdx_torch.shard.dryrun.dryrun_multichip` splits it over a mesh.
 
     dictionary='true' gives the terms [lap, bih, gradsq]. dictionary='rich'
     expresses every decoy with derivatives moved onto the test functions by
@@ -149,6 +154,9 @@ def build_weakform_dataset(
         phi = on_device(gaussian_test_functions(nx, ny, n_phi=n_phi, sigma_px=sigma_px))
     else:
         raise ValueError("unknown weak-form basis: use 'fourier' or 'gaussian'")
+    if phi_rows is not None:
+        phi = phi[phi_rows]
+        k2, k4 = (None if k is None else k[phi_rows] for k in (k2, k4))
 
     if operator == "fd":
         # stencils have no spectral cutoff: an explicit value is rejected

@@ -28,9 +28,13 @@ Euler steps; the 14 ridge-family methods of a regime are one batched
 library build and one batched (B, n + p, p) QR; the weak form's 121-tap
 wrap convolution runs once over its four stacked fields. The sequential
 path (``batch_solves=False``) fits each ridge method as a batch of one
-through the same code, so both paths give the same bits. ``multi_device``
-is accepted and places nothing: one process drives one card (a split over
-cards is later work); ``placement`` names the card.
+through the same code, so both paths give the same bits.
+
+``multi_device`` (with a mesh of more than one device, ``pdx``'s rule)
+places regime i on the mesh's slot i mod n and splits each regime's ridge
+family over the mesh's slots; ``placement`` names each regime's slot: its
+device, and ``#<slot>`` after it where the mesh names that device more than
+once (virtual shards).
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from pdx_torch.preprocess import (
     preprocess_temporal,
     preprocess_tv,
 )
+from pdx_torch.shard.mesh import Mesh, default_mesh, gather_leading, map_shards, maybe_shard_leading
 from pdx_torch.solve.dmd import multiscale_dmd, sparse_dmd, standard_dmd
 from pdx_torch.solve.robust import irls_huber
 from pdx_torch.utils.profiling import null_stage
@@ -85,7 +90,7 @@ class ComprehensiveConfig:
     noises: tuple[str, ...] = ()  # empty = all
     seed: int = 42
     dtype: str = "float64"
-    multi_device: bool = True  # accepted; one card places nothing
+    multi_device: bool = True  # regimes round-robin over the mesh, ridge families split over it
     write_artifacts: bool = True
     # the 14 ridge-family methods of a regime as one batched fit; the draws
     # keep the visit order, so the coefficients equal the sequential path's
@@ -444,12 +449,14 @@ def _scored(coef: np.ndarray, seconds: float) -> dict:
 
 def _run_methods_batched(
     cfg: ComprehensiveConfig, methods: dict[str, Callable], data: Tensor, dx: float, dt_frame: float,
-    st=null_stage,
+    st=null_stage, mesh: Mesh | None = None,
 ) -> dict[str, dict]:
     """One regime's methods in the visit order of the draws: the ridge
     family's preprocessed stacks and subsamples are gathered and fitted as
-    one batch afterwards; every other method runs as in the sequential
-    path."""
+    one batch afterwards, split over ``mesh`` (default: the data's device
+    alone) with ``cfg.multi_device``; every other method runs as in the
+    sequential path."""
+    mesh = default_mesh(data.device) if mesh is None else mesh
     T, H, W = data.shape
     jobs: list[tuple[str, Tensor, np.ndarray]] = []
     coefs: dict[str, np.ndarray] = {}
@@ -474,8 +481,14 @@ def _run_methods_batched(
             with st("ridge_family"):
                 U_stack = torch.stack([d for _, d, _ in jobs])
                 idx_stack = _as_index(np.stack([i for _, _, i in jobs]), data.device)
-                fitted = _ridge_family(U_stack, idx_stack, dx, dt_frame, SINDY_USE_FOURIER, SINDY_MARGIN)
-                fitted = fitted.cpu().numpy()
+                (U_stack, idx_stack), n_jobs = maybe_shard_leading(
+                    (U_stack, idx_stack), "auto" if cfg.multi_device else "off", mesh
+                )
+                parts = map_shards(
+                    lambda u, i: _ridge_family(u, i, dx, dt_frame, SINDY_USE_FOURIER, SINDY_MARGIN),
+                    (U_stack, idx_stack), mesh,
+                )
+                fitted = gather_leading(parts, mesh)[:n_jobs].cpu().numpy()
             solve_t = (time.time() - t0) / len(jobs)
             for (name, _, _), coef in zip(jobs, fitted):
                 coefs[name] = coef
@@ -492,11 +505,17 @@ def compute_error(coef: np.ndarray, true: np.ndarray = TRUE_COEF) -> float:
     return float(np.linalg.norm(coef - true) / np.linalg.norm(true) * 100.0)
 
 
-def run(cfg: ComprehensiveConfig, device: str | torch.device | None = None, timer=None) -> dict[str, Any]:
+def run(
+    cfg: ComprehensiveConfig, device: str | torch.device | None = None, timer=None, mesh: Mesh | None = None
+) -> dict[str, Any]:
     """The method x regime matrix on the CUDA card unless ``device="cpu"``;
     raises without a card otherwise. ``timer`` (a
-    :class:`pdx_torch.utils.profiling.StageTimer`) times the stages."""
+    :class:`pdx_torch.utils.profiling.StageTimer`) times the stages.
+    ``mesh`` (default: every visible card on a CUDA device, the one device
+    on the CPU, where ``pdx`` takes every JAX device) takes the regimes and
+    the ridge families when ``cfg.multi_device``."""
     dev = resolve_device(device)
+    mesh = default_mesh(dev) if mesh is None else mesh
     st = timer.stage if timer is not None else null_stage
     dx = cfg.Lx / cfg.Nx
     dt_frame = cfg.dt * cfg.save_every
@@ -521,10 +540,19 @@ def run(cfg: ComprehensiveConfig, device: str | torch.device | None = None, time
             raise ValueError(f"unknown noise regimes {unknown}; valid: {sorted(datasets)}")
         datasets = {k: v for k, v in datasets.items() if k in set(cfg.noises) or k == "N0_clean"}
 
+    # the regime round-robin: regime i on the mesh's slot i mod n, whose
+    # device then runs the regime's methods (work follows the data)
+    n_slots = len(mesh)
+    if cfg.multi_device and n_slots > 1:
+        placement = {n: mesh.slot_name(i % n_slots) for i, n in enumerate(datasets)}
+        datasets = {n: d.to(mesh.devices[i % n_slots]) for i, (n, d) in enumerate(datasets.items())}
+    else:
+        placement = {n: str(d.device) for n, d in datasets.items()}
+
     results: dict[str, dict] = {}
     for noise_name, data in datasets.items():
         if cfg.batch_solves:
-            results[noise_name] = _run_methods_batched(cfg, methods, data, dx, dt_frame, st)
+            results[noise_name] = _run_methods_batched(cfg, methods, data, dx, dt_frame, st, mesh)
             continue
         results[noise_name] = {}
         for method_name, fn in methods.items():
@@ -534,10 +562,10 @@ def run(cfg: ComprehensiveConfig, device: str | torch.device | None = None, time
                 results[noise_name][method_name] = _scored(coef, time.time() - t0)
             except Exception as e:  # a failing method scores inf, not a crash
                 results[noise_name][method_name] = _failed(e)
-    return _finalize(cfg, datasets, methods, results)
+    return _finalize(cfg, datasets, methods, results, placement)
 
 
-def _finalize(cfg, datasets, methods, results) -> dict[str, Any]:
+def _finalize(cfg, datasets, methods, results, placement) -> dict[str, Any]:
     method_avg = {}
     for m in methods:
         errs = [results[n][m]["error"] for n in results if m in results[n] and np.isfinite(results[n][m]["error"])]
@@ -547,7 +575,7 @@ def _finalize(cfg, datasets, methods, results) -> dict[str, Any]:
     output = {
         "true_coef": TRUE_COEF.tolist(),
         "noise_configs": list(datasets.keys()),
-        "placement": {n: str(d.device) for n, d in datasets.items()},
+        "placement": placement,
         "methods": list(methods.keys()),
         "results": results,
         "rankings": dict(sorted_methods),

@@ -27,6 +27,8 @@ Every other configuration goes through :func:`build_dataset` and
 :func:`run_regression`; ``pdx`` runs that branch with no kernel of its own
 (its matrix products, FFTs, QR and solves are library calls there and here).
 Host RNG draws are numpy draws in ``pdx``'s order, so both fit the same rows.
+The standard single fit there takes the Gram statistics sample-sharded over
+``run``'s mesh when ``cfg.mesh`` says so (:func:`_maybe_sharded_gram`).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from pdx_torch.ops.linalg import gram_stats, standardized_stats
 from pdx_torch.ops.metrics import r2_score, rmse
 from pdx_torch.ops.spectral import gaussian_smooth_periodic, gradients_spectral
 from pdx_torch.register.phasecorr import estimate_interframe_shifts, stabilize_translation_sequence
+from pdx_torch.shard.mesh import Mesh, default_mesh, shard_batch, sharded_gram_stats
 from pdx_torch.sim.ks2d import Ks2dConfig, simulate_ks2d
 from pdx_torch.sim.perturb import PerturbConfig, apply_perturbation_suite
 from pdx_torch.solve.robust import (
@@ -148,7 +151,7 @@ class Ks2dBenchConfig:
     # auto | gram | qr | pallas; 'pallas' = the fused streaming kernels over
     # the FULL field (K1) or every block (K3), selection by train R^2
     solver: str = "auto"
-    mesh: str = "auto"  # auto | off | on (single device in this port)
+    mesh: str = "auto"  # auto | off | on: shard the single fit's Gram over run's mesh
 
 
 def _effective_noise_rel(cfg: Ks2dBenchConfig) -> float:
@@ -450,9 +453,30 @@ def _grid_best(best: dict[str, Any]) -> dict[str, Any]:
     return {k: v for k, v in best.items() if k not in ("coeffs", "key")}
 
 
-def run_regression(cfg: Ks2dBenchConfig, names, X_tr, y_tr, X_te, y_te):
+def _maybe_sharded_gram(cfg: Ks2dBenchConfig, X: Tensor, y: Tensor, mesh: Mesh) -> dict[str, Tensor]:
+    """Gram sufficient statistics, sample-sharded over ``mesh`` when it has
+    more than one device (cfg.mesh='auto') or when forced (cfg.mesh='on').
+
+    Rows are zero-weight-padded to a device-count multiple, so the sharded
+    statistics are the single-device ones up to the order of the sums."""
+    n_dev = len(mesh)
+    use_mesh = cfg.mesh == "on" or (cfg.mesh == "auto" and n_dev > 1)
+    if not use_mesh or n_dev < 2:
+        return gram_stats(X, y)
+    n, n_pad = X.shape[0], (-X.shape[0]) % n_dev
+    w = torch.cat([torch.ones(n, dtype=X.dtype, device=X.device), torch.zeros(n_pad, dtype=X.dtype, device=X.device)])
+    Xp = torch.cat([X, X.new_zeros((n_pad, X.shape[1]))])
+    yp = torch.cat([y, y.new_zeros(n_pad)])
+    stats = sharded_gram_stats(shard_batch(Xp, mesh), shard_batch(yp, mesh), mesh, weights=shard_batch(w, mesh))
+    return {k: v.to(X.device) for k, v in stats.items()}
+
+
+def run_regression(cfg: Ks2dBenchConfig, names, X_tr, y_tr, X_te, y_te, mesh: Mesh | None = None):
     """Regression dispatch incl. grid search. Returns (coeffs, info): info is
-    ``{"grid_best": ...}`` with grid search, else ``{"robust_info": ...}``."""
+    ``{"grid_best": ...}`` with grid search, else ``{"robust_info": ...}``.
+    ``mesh`` (default: :func:`~pdx_torch.shard.mesh.default_mesh` of the
+    rows' device) carries the standard single fit's sharded Gram."""
+    mesh = default_mesh(X_tr.device) if mesh is None else mesh
     scale = _rms_scale(X_tr, names)
     X_tr_s = X_tr / scale
 
@@ -495,9 +519,9 @@ def run_regression(cfg: Ks2dBenchConfig, names, X_tr, y_tr, X_te, y_te):
             return mean_c
         if use_qr:
             return stridge_qr(X_tr_s, y_tr, **kw)
-        # standard STRidge on sufficient statistics (one device here: the
-        # sample-sharded Gram of cfg.mesh comes with the multi-device slice)
-        return stridge_from_stats(gram_stats(X_tr_s, y_tr), **kw).coeffs
+        # standard STRidge on sufficient statistics, the sample axis sharded
+        # over the mesh when cfg.mesh says so
+        return stridge_from_stats(_maybe_sharded_gram(cfg, X_tr_s, y_tr, mesh), **kw).coeffs
 
     if cfg.grid_search and cfg.regression == "standard" and not cfg.robust:
         # batched grid: all 30 hyperparameter points in one batch, metrics on
@@ -619,9 +643,14 @@ VALID_METHODS = {"pointwise", "blockwise", "weakform"}
 VALID_REGRESSIONS = {"standard", "huber", "trimmed", "sign_constrained", "ensemble"}
 
 
-def run(cfg: Ks2dBenchConfig, device: str | torch.device | None = None) -> dict[str, Any]:
+def run(
+    cfg: Ks2dBenchConfig, device: str | torch.device | None = None, mesh: Mesh | None = None
+) -> dict[str, Any]:
     """Run the benchmark on ``device`` (default: the CUDA card; without one
-    this raises unless ``device="cpu"`` is given)."""
+    this raises unless ``device="cpu"`` is given). ``mesh`` carries the
+    sample-sharded Gram of the standard single fit; by default it is every
+    visible card on a CUDA device and the one device on the CPU, where
+    ``pdx`` takes every JAX device (its tests' 8 virtual CPU devices too)."""
     if cfg.method not in VALID_METHODS:
         raise ValueError(f"method must be one of {sorted(VALID_METHODS)}, got '{cfg.method}'")
     if cfg.regression not in VALID_REGRESSIONS:
@@ -665,7 +694,7 @@ def run(cfg: Ks2dBenchConfig, device: str | torch.device | None = None) -> dict[
     X_tr, y_tr = X_all[tr], y_all[tr]
     X_te, y_te = X_all[te], y_all[te]
 
-    coeffs, reg_info = run_regression(cfg, names, X_tr, y_tr, X_te, y_te)
+    coeffs, reg_info = run_regression(cfg, names, X_tr, y_tr, X_te, y_te, mesh)
     coeffs_np = coeffs.cpu().numpy()  # single transfer; host scalar reads below
 
     y_pred_tr = X_tr @ coeffs

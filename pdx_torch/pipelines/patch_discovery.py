@@ -11,7 +11,8 @@ The sample points are drawn on the host with numpy in ``pdx``'s order, so
 both packages fit the same rows. All patches' derivatives are one gather and
 one product (``library/localpoly.py``); all per-patch fits are one batch over
 the patch axis (``gram_stats`` and ``stridge_from_stats`` take leading batch
-axes), where ``pdx`` vmaps. ``cfg.mesh`` is accepted and means one device.
+axes), where ``pdx`` vmaps; ``cfg.mesh`` splits that patch axis over the
+mesh that ``run`` and :func:`discover` take (``pdx/shard/mesh.py``'s rule).
 
 :func:`run` is the entry point; its stages (:func:`preprocess_head`,
 :func:`register`, :func:`discover`) can be called apart, so that a test can
@@ -38,6 +39,7 @@ from pdx_torch.ops.linalg import gram_stats
 from pdx_torch.ops.metrics import regression_metrics
 from pdx_torch.preprocess import resize_denoise_normalize
 from pdx_torch.register.farneback import register_sequence_dispatch
+from pdx_torch.shard.mesh import Mesh, default_mesh, gather_leading, map_shards, maybe_shard_leading
 from pdx_torch.solve.robust import median
 from pdx_torch.solve.stridge import stridge_from_stats
 
@@ -79,7 +81,7 @@ class PatchDiscoveryConfig:
     reference_compat_warp: bool = False
     dtype: str = "float64"
     write_artifacts: bool = True
-    mesh: str = "auto"  # accepted; the port fits every patch on one device
+    mesh: str = "auto"  # auto | off | on: split the patch fits over the mesh
 
 
 def patch_grid(h: int, w: int, patch: int, overlap: int) -> list[tuple[int, int]]:
@@ -216,8 +218,11 @@ def heldout_eval(U: Tensor, Xg: Tensor, yg: Tensor, Xs: Tensor, spts: Tensor, ag
     return m, one_step
 
 
-def discover(cfg: PatchDiscoveryConfig, U: Tensor) -> dict[str, Any]:
-    """Everything after registration, on the registered (T, H, W) stack."""
+def discover(cfg: PatchDiscoveryConfig, U: Tensor, mesh: Mesh | None = None) -> dict[str, Any]:
+    """Everything after registration, on the registered (T, H, W) stack.
+    The patch fits split over ``mesh`` (default: :func:`~pdx_torch.shard.
+    mesh.default_mesh` of the stack's device) as ``cfg.mesh`` says."""
+    mesh = default_mesh(U.device) if mesh is None else mesh
     U = working_stack(cfg, U)
     t_len, h, w = U.shape
     names = _term_names(cfg)
@@ -225,11 +230,18 @@ def discover(cfg: PatchDiscoveryConfig, U: Tensor) -> dict[str, Any]:
     P, p = train_pts.shape[0], len(names)
 
     d_tr, d_te = patch_datasets(cfg, U, train_pts, test_pts)
-    coeffs, m_tr_v, m_te_v = all_patch_fits(d_tr, d_te, names=names, alpha=cfg.alpha, threshold=cfg.threshold)
+    # the patch axis split over the mesh: padding repeats the last patch and
+    # is sliced off below, so results are the single-device ones
+    (d_tr, d_te), P = maybe_shard_leading((d_tr, d_te), cfg.mesh, mesh)
+    parts = map_shards(
+        lambda a, b: all_patch_fits(a, b, names=names, alpha=cfg.alpha, threshold=cfg.threshold), (d_tr, d_te), mesh
+    )
+    n_shard_devices = len(parts)  # shards the patch axis was split into
+    coeffs, m_tr_v, m_te_v = gather_leading(parts, mesh)
     # one read of the whole fit result
     host = torch.cat(
         [coeffs] + [torch.stack([m[k] for k in METRIC_KEYS], dim=-1) for m in (m_tr_v, m_te_v)], dim=-1
-    ).cpu().numpy()
+    )[:P].cpu().numpy()
     C = host[:, :p]
     m_tr_np, m_te_np = host[:, p : p + 5], host[:, p + 5 :]
     patch_train_metrics = [dict(zip(METRIC_KEYS, map(float, row))) for row in m_tr_np]
@@ -277,7 +289,7 @@ def discover(cfg: PatchDiscoveryConfig, U: Tensor) -> dict[str, Any]:
         "patch_coeffs": C,
         "stats": stats,
         "n_patches": P,
-        "n_shard_devices": 1,
+        "n_shard_devices": n_shard_devices,
         "working_shape": (t_len, h, w),
         "patch_train_metrics": patch_train_metrics,
         "patch_test_metrics": patch_test_metrics,
@@ -291,16 +303,21 @@ def discover(cfg: PatchDiscoveryConfig, U: Tensor) -> dict[str, Any]:
 
 
 def run(
-    cfg: PatchDiscoveryConfig, U_raw: np.ndarray | None = None, device: str | torch.device | None = None
+    cfg: PatchDiscoveryConfig,
+    U_raw: np.ndarray | None = None,
+    device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> dict[str, Any]:
     """Patch discovery on ``U_raw`` (a (T, H, W) frame stack), or on the
     first ``cfg.max_images`` TIFFs of ``cfg.data_dir``. Runs on the CUDA
-    card unless ``device="cpu"``; raises without a card otherwise."""
+    card unless ``device="cpu"``; raises without a card otherwise. ``mesh``
+    (default: every visible card on a CUDA device, the one device on the
+    CPU, where ``pdx`` takes every JAX device) carries the patch fits."""
     dev = resolve_device(device)
     resolve_dtype(cfg.dtype)  # refuse an unknown dtype before any work
     if U_raw is None:
         U_raw = load_images(cfg.data_dir, max_images=cfg.max_images, dtype=np.uint16)
-    return discover(cfg, register(cfg, preprocess_head(cfg, U_raw, dev)))
+    return discover(cfg, register(cfg, preprocess_head(cfg, U_raw, dev)), mesh)
 
 
 def _safe_sample_points(rng, t_indices, h, w, rs, n) -> np.ndarray:

@@ -26,7 +26,8 @@ the patch axis, where ``pdx`` vmaps. Registration schedules:
 ``flow_downsample=None`` computes the compose path's flows at 1/4 or 1/2
 resolution on the card (the largest that keeps a 64 px flow grid) and at
 full resolution on the CPU. Both policies read the tensor's device and no
-environment variable. ``cfg.mesh`` is accepted and means one device.
+environment variable. ``cfg.mesh`` splits the patch fits over the mesh that
+``run`` takes (``pdx/shard/mesh.py``'s rule).
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from pdx_torch.register.farneback import (
     farneback_register_sequence,
 )
 from pdx_torch.report.pipeline_figures import patch_sindy_figure_frame_indices
+from pdx_torch.shard.mesh import Mesh, default_mesh, gather_leading, map_shards, maybe_shard_leading
 from pdx_torch.utils.profiling import null_stage
 
 TERM_NAMES = ["1", "u", "u_x", "u_y", "u_xx", "u_yy", "∇²u", "u²", "u·u_x", "u·u_y", "u·∇²u"]
@@ -100,7 +102,7 @@ class PatchSindyConfig:
     var_suppress_factor: float = 2.0
     dtype: str = "float64"
     write_artifacts: bool = True
-    mesh: str = "auto"  # accepted; the port fits every patch on one device
+    mesh: str = "auto"  # auto | off | on: split the patch fits over run's mesh
 
 
 def _grid_coords(H: int, W: int, patch_size: int, stride: int) -> list[tuple[int, int]]:
@@ -305,14 +307,21 @@ def _select_frames_f32(U: Tensor, idxs: list[int], ds: int = 1) -> np.ndarray:
 
 
 def run(
-    cfg: PatchSindyConfig, U_raw: np.ndarray | None = None, timer=None, device: str | torch.device | None = None
+    cfg: PatchSindyConfig,
+    U_raw: np.ndarray | None = None,
+    timer=None,
+    device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> dict[str, Any]:
     """Patch SINDy on ``U_raw`` (a (T, H, W) stack, used as it is), or on
     the TIFFs of ``cfg.data_dir`` read as 8-bit grayscale and scaled by
     1/255. Runs on the CUDA card unless ``device="cpu"``; raises without a
     card otherwise. ``timer`` (a :class:`pdx_torch.utils.profiling.
-    StageTimer`) times the stages."""
+    StageTimer`) times the stages. ``mesh`` (default: every visible card on
+    a CUDA device, the one device on the CPU, where ``pdx`` takes every JAX
+    device) carries the patch fits."""
     dev = resolve_device(device)
+    mesh = default_mesh(dev) if mesh is None else mesh
     dtype = resolve_dtype(cfg.dtype)
     st = timer.stage if timer is not None else null_stage
     if U_raw is None:
@@ -355,8 +364,13 @@ def run(
     with st("registration"):
         seqs, qualities = register_patches(cfg, seqs)
     with st("discovery"):
-        coeffs, qual = discover_patches(seqs, qualities.to(seqs.dtype), cfg)
-        host = torch.cat([coeffs, qual[:, None]], dim=1).cpu().numpy()  # one read
+        # the patch axis split over the mesh; results sliced back to the true
+        # patch count before the quality clamp, as in pdx
+        (seqs_s, qual_s), P_orig = maybe_shard_leading((seqs, qualities.to(seqs.dtype)), cfg.mesh, mesh)
+        parts = map_shards(lambda s, q: discover_patches(s, q, cfg), (seqs_s, qual_s), mesh)
+        n_shard_devices = len(parts)  # shards the patch axis was split into
+        coeffs, qual = gather_leading(parts, mesh)
+        host = torch.cat([coeffs, qual[:, None]], dim=1)[:P_orig].cpu().numpy()  # one read
     C, Q = host[:, :-1], np.maximum(host[:, -1], 0.0)
 
     valid = Q > -0.5
@@ -378,7 +392,7 @@ def run(
         "coeffs_std": std,
         "patch_coeffs": C,
         "n_patches": int(C.shape[0]),
-        "n_shard_devices": 1,
+        "n_shard_devices": n_shard_devices,
         "avg_quality": float(Q.mean()),
         "quality_std": float(Q.std()),
     }

@@ -2,8 +2,9 @@
 __init__ imports jax): neither on import nor while a run is under way (the
 KS-2D dataset / regression branch, the patch ensemble and analyze with
 registration on, transport; in a second process, patch_sindy with ECC and
-with optical flow, improved_registration, the comprehensive method matrix
-and sindy1d). In a third, with matplotlib made unimportable, the report
+with optical flow, improved_registration, the comprehensive method matrix,
+sindy1d and the multi-device dry run over a mesh of virtual shards). In a
+third, with matplotlib made unimportable, the report
 modules and run_all import, and run_all(skip_heavy=True) marks every figure
 stage skipped and runs the rest."""
 
@@ -82,6 +83,11 @@ out = comprehensive.run(comprehensive.ComprehensiveConfig(n_seconds=0.05, Nx=24,
 assert len(out["results"]["N7_all"]) == 21, out
 out = sindy1d.run(sindy1d.Sindy1dConfig(n_steps=40, scenario="shifted", register=True, regressor="stridge"), "cpu")
 assert np.isfinite(out["coeffs"]).all(), out
+import contextlib, io
+import pdx_torch.shard, pdx_torch.shard.mesh, pdx_torch.shard.dryrun
+with contextlib.redirect_stdout(io.StringIO()):  # its "ok" line
+    out = pdx_torch.shard.dryrun.dryrun_multichip(3, "cpu")  # every sharded axis over 3 virtual shards
+assert out["patch_shards"] == 3 and len(set(out["placement"].values())) == 3, out
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "pdx.")) or m == "pdx")
 assert not bad, bad
 print("clean")

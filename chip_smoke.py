@@ -34,9 +34,9 @@ Phases, each of which exits non-zero on failure:
    full default size (100x100, 2000 Euler steps, float64): solver auto,
    pallas (K1), pallas blockwise (K3), pallas rich (K2), pallas blockwise
    rich (K4), pallas with advection (K2) and a perturbed configuration (N5
-   jitter, stabilised, denoised, rich blockwise: K4). Every launch counter
-   is set to 0 just before each run and read just after; the run's kernel
-   must have moved. Gates: worst ground-truth error < 1% (true library) or
+   jitter, stabilised, denoised, rich blockwise: K4). Every launch count
+   of the tracer is read just before each run and just after; the run's
+   kernel's must have moved. Gates: worst ground-truth error < 1% (true library) or
    < 2% (rich / advection), finite coefficients and rollout; the perturbed
    run is gated on finite coefficients and its launch only. Then, at the
    same size, ten configurations of the dataset / regression branch (no
@@ -205,6 +205,19 @@ BRANCH = {
     ),
     "shift_ut": (dict(perturbation="N1_shifts", correct_shift_ut=True, grid_search=True), None, 3, 1e-6, ""),
 }
+
+
+def _launch_totals(counters: dict) -> dict:
+    """{name: the tracer's process-wide total} of each launch count
+    (``counters`` maps a kernel's name to its count's name)."""
+    from pdx_torch.utils.profiling import total
+
+    return {n: total(c) for n, c in counters.items()}
+
+
+def _launches_since(counters: dict, base: dict) -> dict:
+    """Launches of each kernel since ``base`` (:func:`_launch_totals`)."""
+    return {n: v - base[n] for n, v in _launch_totals(counters).items()}
 
 
 def _time_ms(fn, reps: int = 15) -> float:
@@ -520,14 +533,13 @@ def _run_branch(dev, card: str, counters: dict) -> None:
     for label, (kw, gate, p, _tol, _why) in BRANCH.items():
         cfg = Ks2dBenchConfig(**kw)
         run(cfg, dev)  # warm-up: first-use allocations, cuSOLVER and cuFFT plans
-        for c in counters.values():
-            c.launches = 0
+        base = _launch_totals(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run(cfg, dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        moved = {n: c.launches for n, c in counters.items()}
+        moved = _launches_since(counters, base)
         if any(moved.values()):
             raise AssertionError(f"{label}: this branch launches no kernel, yet {moved}")
         coeffs = dict(zip(res["names"], res["coeffs"]))
@@ -602,15 +614,14 @@ def _patch_run(label: str, U, cfg, dev, card: str, counters: dict) -> dict:
     U.setflags(write=False)  # a read-only stack is shipped to the card once (io_host.images.device_stack)
     pd.run(cfg, U_raw=U, device=dev)  # warm-up
     walls = []
-    for c in counters.values():
-        c.launches = 0
+    base = _launch_totals(counters)
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = pd.run(cfg, U_raw=U, device=dev)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    moved = {n: c.launches for n, c in counters.items()}
+    moved = _launches_since(counters, base)
     if any(moved.values()):
         raise AssertionError(f"{label}: the patch ensemble launches no kernel, yet {moved}")
     C = np.asarray(out["patch_coeffs"])
@@ -736,14 +747,13 @@ def _patch_phase(full, dev, card: str, counters: dict) -> None:
 def _warm_walls(fn, counters: dict, label: str, reps: int = 3, warm: bool = True) -> tuple[list[float], object]:
     """One warm-up call of fn (unless ``warm`` is False), then reps calls
     timed on the host clock, each ended by a synchronize, with every launch
-    counter set to 0 before them: (walls in s, the last result). Raises if a
-    kernel was launched (the real-image paths have none)."""
+    count read before and after them: (walls in s, the last result). Raises
+    if a kernel was launched (the real-image paths have none)."""
     import torch
 
     if warm:
         fn()
-    for c in counters.values():
-        c.launches = 0
+    base = _launch_totals(counters)
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -751,7 +761,7 @@ def _warm_walls(fn, counters: dict, label: str, reps: int = 3, warm: bool = True
         out = fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    moved = {n: c.launches for n, c in counters.items()}
+    moved = _launches_since(counters, base)
     if any(moved.values()):
         raise AssertionError(f"{label}: this path launches no kernel, yet {moved}")
     return walls, out
@@ -1583,8 +1593,7 @@ def _run_all_phase(data_dir, dev, card: str, counters: dict) -> None:
         images.clear_stack_memcache()
         walls = []
         for what in ("cold", "warm", "warm"):
-            for c in counters.values():
-                c.launches = 0
+            base = _launch_totals(counters)
             timer = StageTimer()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1592,7 +1601,7 @@ def _run_all_phase(data_dir, dev, card: str, counters: dict) -> None:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             images.flush_stack_cache_writes()
-            moved = {n: c.launches for n, c in counters.items()}
+            moved = _launches_since(counters, base)
             if any(moved.values()):
                 raise AssertionError(f"{label}: this path launches no kernel, yet {moved}")
             n_coeffs = _run_all_gates(label, status, out_root, has_mpl)
@@ -1645,14 +1654,13 @@ def _run_all_phase(data_dir, dev, card: str, counters: dict) -> None:
 def _on_off(label: str, run, counters: dict, card: str) -> tuple[dict, dict]:
     """``run(mode)`` with the mesh "off" once (a warm-up), then off and on in
     turns three times, each call timed on the host clock and ended by a
-    synchronize, every launch counter at 0 before them: prints both warm
+    synchronize, every launch count read before and after them: prints both warm
     walls (median of 3) and returns the last (off, on) results."""
     import torch
 
     run("off")
     walls, out = {"off": [], "on": []}, {}
-    for c in counters.values():
-        c.launches = 0
+    base = _launch_totals(counters)
     for _ in range(3):
         for mode in ("off", "on"):
             torch.cuda.synchronize()
@@ -1660,7 +1668,7 @@ def _on_off(label: str, run, counters: dict, card: str) -> tuple[dict, dict]:
             out[mode] = run(mode)
             torch.cuda.synchronize()
             walls[mode].append(time.perf_counter() - t0)
-    moved = {n: c.launches for n, c in counters.items()}
+    moved = _launches_since(counters, base)
     if any(moved.values()):
         raise AssertionError(f"{label}: this path launches no kernel, yet {moved}")
     off, on = (statistics.median(walls[m]) for m in ("off", "on"))
@@ -1811,28 +1819,28 @@ def main() -> int:
             plain=lambda U, Ut, names: kg.fused_ks_gram_reference(U, Ut, 0.5, 0.5),
             source="pdx_torch/csrc/fused_gram.cu",
             replaces="pdx/ops/pallas/fused_gram.py:279",
-            counter=kg.fused_ks_gram, blockwise=False, main=[TRUE], ragged=[TRUE],
+            counter="fused_ks_gram.launches", blockwise=False, main=[TRUE], ragged=[TRUE],
         ),
         "fused_ks_gram_terms": dict(
             wrapper=lambda U, Ut, names: kg.fused_ks_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names),
             plain=lambda U, Ut, names: kg._terms_reference(U, Ut, 0.5, 0.5, names),
             source="pdx_torch/csrc/fused_gram_terms.cu",
             replaces="pdx/ops/pallas/fused_gram.py:177",
-            counter=kg.fused_ks_gram_terms, blockwise=False, main=[RICH, ADV], ragged=[NO_ADV, ADV],
+            counter="fused_ks_gram_terms.launches", blockwise=False, main=[RICH, ADV], ragged=[NO_ADV, ADV],
         ),
         "fused_blockwise_gram": dict(
             wrapper=lambda U, Ut, names: kb.fused_blockwise_gram(U, Ut, dx=0.5, dy=0.5, **kw3),
             plain=lambda U, Ut, names: kb.fused_blockwise_gram_reference(U, Ut, 0.5, 0.5, **kw3),
             source="pdx_torch/csrc/fused_blockwise.cu",
             replaces="pdx/ops/pallas/fused_blockwise.py:272",
-            counter=kb.fused_blockwise_gram, blockwise=True, main=[TRUE], ragged=[TRUE],
+            counter="fused_blockwise_gram.launches", blockwise=True, main=[TRUE], ragged=[TRUE],
         ),
         "fused_blockwise_gram_terms": dict(
             wrapper=lambda U, Ut, names: kb.fused_blockwise_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names, **kw3),
             plain=lambda U, Ut, names: kb.fused_blockwise_gram_terms_reference(U, Ut, 0.5, 0.5, names=names, **kw3),
             source="pdx_torch/csrc/fused_blockwise_terms.cu",
             replaces="pdx/ops/pallas/fused_blockwise.py:179",
-            counter=kb.fused_blockwise_gram_terms, blockwise=True, main=[RICH], ragged=[NO_ADV, ADV],
+            counter="fused_blockwise_gram_terms.launches", blockwise=True, main=[RICH], ragged=[NO_ADV, ADV],
         ),
     }
     rng = np.random.default_rng(0)
@@ -1915,7 +1923,7 @@ def main() -> int:
         del U, Ut
     _phase_memory("the kernels", dev)
 
-    # 3. the main paths at full size; counters set to 0 before each run
+    # 3. the main paths at full size; launch counts read before and after each run
     _await_card("the KS-2D paths", dev)
     base = dict(grid_search=True)
     perturbed = dict(
@@ -1943,16 +1951,16 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[slice] simulate_ks2d alone (2000 steps, 100x100, float64): {time.perf_counter() - t0:.4f} s ({card})")
 
+    counters = {n: s["counter"] for n, s in specs.items()}
     launches = {name: 0 for name in specs}
     for label, (kw, needs, gate, p) in configs.items():
-        for s in specs.values():
-            s["counter"].launches = 0
+        launch_base = _launch_totals(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run(Ks2dBenchConfig(**base, **kw), dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        moved = {n: s["counter"].launches for n, s in specs.items()}
+        moved = _launches_since(counters, launch_base)
         for n, c in moved.items():
             launches[n] += c
         worst = max(v["rel_err_pct"] for v in res["gt_errors"].values())
@@ -2000,7 +2008,6 @@ def main() -> int:
     # 5-7. the real-image pipelines, on one stack of the real dataset's shape
     from tools.make_synth_stack import make_stack
 
-    counters = {n: s["counter"] for n, s in specs.items()}
     t0 = time.perf_counter()
     full = make_stack(T=51, H=1024, W=1280)
     full.setflags(write=False)  # a read-only stack is shipped to the card once (io_host.images.device_stack)

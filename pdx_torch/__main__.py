@@ -4,15 +4,15 @@ Usage:
   python -m pdx_torch ks2d-bench [--grid-search] [--solver auto|gram|qr|pallas]
       [--method pointwise|blockwise|weakform] [--dictionary true|rich]
       [--regression standard|huber|trimmed|sign_constrained|ensemble] [--robust]
-      [--correct-shift-ut] [...]
+      [--correct-shift-ut] [--profile] [...]
   python -m pdx_torch ks2d-bench-json [...]
   python -m pdx_torch patch-discover --data-dir DIR [--no-registration]
-      [--register-mode auto|compose|chain|to_first] [--patch 21] [...]
+      [--register-mode auto|compose|chain|to_first] [--patch 21] [--profile] [...]
   python -m pdx_torch analyze --data-dir DIR [--output-dir OUT] [--robust]
       [--stabilize] [--no-registration] [--register-mode ...] [--include-fourth-order]
       [--skip 25] [--subsample 12] [--profile] [...]
   python -m pdx_torch transport --data-dir DIR [--output-dir OUT] [--max-images 51]
-      [--downsample 4] [--quick]
+      [--downsample 4] [--quick] [--profile]
   python -m pdx_torch patch-sindy --data-dir DIR [--registration none|ecc|optical_flow]
       [--flow-scope patch|frame] [--flow-impl auto|compose|chain] [--patch-size 256]
       [--overlap 64] [--max-patches N] [...]
@@ -30,8 +30,11 @@ Usage:
 The flags are ``pdx``'s (for ks2d-bench one per ``Ks2dBenchConfig``
 field), plus ``--device`` (default ``cuda``) for every command that
 computes. The run uses the CUDA card and fails without one; ``--device cpu``
-runs it on the CPU. ``doctor`` checks the card, the toolkit and the kernels,
-and exits 1 without a card.
+runs it on the CPU. ``--profile`` (ks2d-bench, patch-discover, analyze,
+transport) runs with a :class:`pdx_torch.utils.profiling.StageTimer` and
+prints its report: each stage's seconds (ended by a synchronize), then the
+program's nested spans with their self time and counts. ``doctor`` checks
+the card, the toolkit and the kernels, and exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -61,22 +64,31 @@ def _add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:
             parser.add_argument(name, type=py_type, default=f.default)
 
 
-def _parse_config(prog: str, argv: list[str]):
-    """(Ks2dBenchConfig, device) from the command line."""
+def _parse_config(prog: str, argv: list[str], profile: bool = False):
+    """(Ks2dBenchConfig, the parsed arguments) from the command line; with
+    ``profile`` the parser also takes ``--profile``."""
     from pdx_torch.pipelines.ks2d_bench import Ks2dBenchConfig
 
     parser = argparse.ArgumentParser(prog=prog)
     _add_dataclass_args(parser, Ks2dBenchConfig)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    if profile:
+        parser.add_argument("--profile", action="store_true",
+                            help="print the stages' seconds and the program's spans")
     args = parser.parse_args(argv)
     cfg = Ks2dBenchConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(Ks2dBenchConfig)})
-    return cfg, args.device
+    return cfg, args
 
 
 def cmd_ks2d_bench(argv: list[str]) -> int:
     from pdx_torch.pipelines.ks2d_bench import run
+    from pdx_torch.utils.profiling import StageTimer
 
-    res = run(*_parse_config("pdx_torch ks2d-bench", argv))
+    cfg, args = _parse_config("pdx_torch ks2d-bench", argv, profile=True)
+    timer = StageTimer() if args.profile else None
+    res = run(cfg, args.device, timer=timer)
+    if timer is not None:
+        print(timer.report())
     print("Discovered PDE (|c| > 1e-8):")
     for name, c in sorted(zip(res["display_names"], res["coeffs"]), key=lambda p: -abs(p[1])):
         if abs(c) > 1e-8:
@@ -100,7 +112,8 @@ def cmd_json(argv: list[str]) -> int:
     """ks2d-bench with machine-readable JSON output."""
     from pdx_torch.pipelines.ks2d_bench import run
 
-    res = run(*_parse_config("pdx_torch ks2d-bench-json", argv))
+    cfg, args = _parse_config("pdx_torch ks2d-bench-json", argv)
+    res = run(cfg, args.device)
     # tensors (robust_info's std and confidence bounds) become lists
     print(json.dumps(res, default=lambda o: o.tolist()))
     return 0

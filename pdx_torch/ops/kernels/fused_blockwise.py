@@ -13,7 +13,9 @@ valid cells, as in :func:`pdx_torch.library.blockwise.build_blockwise_dataset`.
 Fields are float32 from float32-rounded inputs (the kernels round float64
 input on load); block sums, means and Gram sums
 are float64 in the kernels and in :func:`fused_blockwise_gram_reference` /
-:func:`fused_blockwise_gram_terms_reference`.
+:func:`fused_blockwise_gram_terms_reference`. Each launch adds 1 to the
+tracer's count ``fused_blockwise_gram.launches`` or
+``fused_blockwise_gram_terms.launches``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from pdx_torch.ops.kernels.fused_gram import (
     _terms_stats_from_row,
 )
 from pdx_torch.ops.linalg import gram_stats
+from pdx_torch.utils.profiling import count
 
 
 def fused_blockwise_gram_reference(
@@ -192,12 +195,9 @@ def fused_blockwise_gram(
         )
     if rc != 0:
         raise RuntimeError(f"fused_blockwise_gram: CUDA launch failed with error {rc}")
-    fused_blockwise_gram.launches += 1
+    count("fused_blockwise_gram.launches")
     n_blocks = -(-T // bt) * -(-H // bx) * -(-W // by)
     return _stats_from_row(out, float(n_blocks))
-
-
-fused_blockwise_gram.launches = 0  # K3 launches in this process
 
 
 _K4_THREADS = 256  # most threads a K4 CTA takes
@@ -313,9 +313,7 @@ def fused_blockwise_gram_terms(
         )
     if rc != 0:
         raise RuntimeError(f"fused_blockwise_gram_terms: CUDA launch failed with error {rc}")
-    fused_blockwise_gram_terms.launches += 1
+    count("fused_blockwise_gram_terms.launches")
     n_blocks = -(-T // bt) * -(-H // bx) * -(-W // by)
     return _terms_stats_from_row(out, p, float(n_blocks))
 
-
-fused_blockwise_gram_terms.launches = 0  # K4 launches in this process

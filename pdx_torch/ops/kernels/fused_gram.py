@@ -13,7 +13,9 @@ kernels do (the kernels read float64 input directly and round each value on
 load, which gives the value ``.to(torch.float32)`` gives); sums are float64
 in the kernels and in their plain versions
 :func:`fused_ks_gram_reference` and :func:`_terms_reference`, so the
-statistics come back as float64.
+statistics come back as float64. Each launch adds 1 to the tracer's count
+``fused_ks_gram.launches`` or ``fused_ks_gram_terms.launches``
+(:func:`pdx_torch.utils.profiling.total` reads it).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from torch import Tensor
 
 from pdx_torch.ops.linalg import gram_stats
+from pdx_torch.utils.profiling import count
 
 RICH_TERM_NAMES = ("one", "u", "u2", "ux", "uy", "lap", "bih", "gradsq", "u_lap")
 
@@ -346,11 +349,8 @@ def fused_ks_gram_terms(
         )
     if rc != 0:
         raise RuntimeError(f"fused_ks_gram_terms: CUDA launch failed with error {rc}")
-    fused_ks_gram_terms.launches += 1
+    count("fused_ks_gram_terms.launches")
     return _terms_stats_from_row(out, p, float(T * H * W))
-
-
-fused_ks_gram_terms.launches = 0  # K2 launches in this process
 
 
 def _gram_band_plan(H: int, W: int, itemsize: int, route: int) -> tuple[int, int, int]:
@@ -415,8 +415,6 @@ def fused_ks_gram(U: Tensor, Ut: Tensor, *, dx: float, dy: float) -> dict[str, T
         )
     if rc != 0:
         raise RuntimeError(f"fused_ks_gram: CUDA launch failed with error {rc}")
-    fused_ks_gram.launches += 1
+    count("fused_ks_gram.launches")
     return _stats_from_row(out, float(T * H * W))
 
-
-fused_ks_gram.launches = 0  # K1 launches in this process

@@ -69,6 +69,7 @@ from pdx_torch.solve.robust import (
     trimmed_stridge,
 )
 from pdx_torch.solve.stridge import stridge_from_stats, stridge_grid, stridge_qr, stridge_qr_grid
+from pdx_torch.utils.profiling import null_stage, span
 from pdx_torch.validate.rollout import rollout_rmse_curve_named
 
 KS_GT = {"lap": -1.0, "bih": -1.0, "gradsq": -0.5}
@@ -162,17 +163,31 @@ def _effective_noise_rel(cfg: Ks2dBenchConfig) -> float:
     return noise_rel
 
 
-def prepare_frames(cfg: Ks2dBenchConfig, device: str | torch.device | None = None) -> dict[str, Any]:
+def prepare_frames(cfg: Ks2dBenchConfig, device: str | torch.device | None = None, timer=None) -> dict[str, Any]:
     """simulate -> perturb -> stabilise -> denoise, on ``device`` (default:
     the CUDA card; raises without one). Returns the field dict of
-    ``pdx.pipelines.ks2d_bench.prepare_frames``."""
+    ``pdx.pipelines.ks2d_bench.prepare_frames``. Stage ``prepare_frames``
+    of ``timer``, with the spans ``ks2d.sim`` (and the Euler-step count)
+    and ``ks2d.perturb_denoise``."""
     sim = Ks2dConfig(
         Nx=cfg.Nx, Ny=cfg.Ny, dt=cfg.dt, n_seconds=cfg.n_seconds, save_every=cfg.save_every
     )
-    U_clean, dx, dy, DT = simulate_ks2d(
-        sim, dtype=resolve_dtype(cfg.dtype), device=resolve_device(device)
-    )
+    st = timer.stage if timer is not None else null_stage
+    with st("prepare_frames"):
+        with span("ks2d.sim"):
+            U_clean, dx, dy, DT = simulate_ks2d(
+                sim, dtype=resolve_dtype(cfg.dtype), device=resolve_device(device)
+            )
+        with span("ks2d.perturb_denoise"):
+            U, U_for_ut, U_for_features = _perturb_denoise(cfg, U_clean)
+    return {
+        "U_clean": U_clean, "U": U, "U_for_ut": U_for_ut, "U_for_features": U_for_features,
+        "dx": dx, "dy": dy, "DT": DT, "sim": sim,
+    }
 
+
+def _perturb_denoise(cfg: Ks2dBenchConfig, U_clean: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """perturb -> stabilise -> denoise: (U, U_for_ut, U_for_features)."""
     perturb = PerturbConfig(
         perturbation=cfg.perturbation,
         noise_rel=_effective_noise_rel(cfg),
@@ -199,11 +214,7 @@ def prepare_frames(cfg: Ks2dBenchConfig, device: str | torch.device | None = Non
             U_for_features = U_for_ut
         else:
             U_for_features = gaussian_smooth_periodic(U_for_features, cfg.denoise_space_sigma)
-
-    return {
-        "U_clean": U_clean, "U": U, "U_for_ut": U_for_ut, "U_for_features": U_for_features,
-        "dx": dx, "dy": dy, "DT": DT, "sim": sim,
-    }
+    return U, U_for_ut, U_for_features
 
 
 def build_dataset(cfg: Ks2dBenchConfig, fr: dict[str, Any], rng: np.random.Generator):
@@ -308,23 +319,24 @@ def _fused_pointwise_grid(
     """Pointwise grid core: forward-difference target -> dictionary -> row
     gather -> train/test split -> RMS scaling -> alpha x threshold STRidge
     grid -> test metrics."""
-    Ut = forward_difference_ut(U_for_ut, DT)
-    U_frames = U_for_features[:-1]
-    if set(names) <= {"lap", "bih", "gradsq", "ux", "uy"}:
-        _n, terms = build_dictionary_true(
-            U_frames, dx, dy, deriv=deriv, include_advection="ux" in names
-        )
-    else:
-        _n, terms = build_dictionary_rich(
-            U_frames, dx, dy, deriv=deriv, drop_advection="ux" not in names
-        )
-    p = terms.shape[0]
-    X_all = terms.reshape(p, -1)[:, flat_idx].T
-    y_all = Ut.reshape(-1)[flat_idx]
-    X_tr, y_tr = X_all[tr_idx], y_all[tr_idx]
-    X_te, y_te = X_all[te_idx], y_all[te_idx]
+    with span("ks2d.stats"):
+        Ut = forward_difference_ut(U_for_ut, DT)
+        U_frames = U_for_features[:-1]
+        if set(names) <= {"lap", "bih", "gradsq", "ux", "uy"}:
+            _n, terms = build_dictionary_true(
+                U_frames, dx, dy, deriv=deriv, include_advection="ux" in names
+            )
+        else:
+            _n, terms = build_dictionary_rich(
+                U_frames, dx, dy, deriv=deriv, drop_advection="ux" not in names
+            )
+        p = terms.shape[0]
+        X_all = terms.reshape(p, -1)[:, flat_idx].T
+        y_all = Ut.reshape(-1)[flat_idx]
+        X_tr, y_tr = X_all[tr_idx], y_all[tr_idx]
+        X_te, y_te = X_all[te_idx], y_all[te_idx]
 
-    scale = _rms_scale(X_tr, names)
+        scale = _rms_scale(X_tr, names)
     return _grid_solve_and_score(X_tr / scale, y_tr, X_te, y_te, scale, alphas, thresholds, use_qr)
 
 
@@ -332,75 +344,81 @@ def _fused_fullfield_grid(U_for_ut, U_for_features, DT, dx, dy, alphas, threshol
     """Full-field grid: kernel K1 accumulates the true library's statistics
     over EVERY sample (no subsample, no materialised design matrix); the
     grid is scored by full-field train R^2 from the same statistics."""
-    Ut = forward_difference_ut(U_for_ut, DT)
-    stats = fused_ks_gram(U_for_features[:-1], Ut, dx=dx, dy=dy)
+    with span("ks2d.stats"):
+        Ut = forward_difference_ut(U_for_ut, DT)
+        stats = fused_ks_gram(U_for_features[:-1], Ut, dx=dx, dy=dy)
     return _grid_from_stats(stats, alphas, thresholds)
 
 
 def _fused_blockwise_grid(U_for_ut, U_for_features, DT, dx, dy, alphas, thresholds, bt, bx, by):
     """Blockwise grid: kernel K3 accumulates the blockwise dataset's
     statistics over every block; scored by train R^2 over all blocks."""
-    Ut = forward_difference_ut(U_for_ut, DT)
-    stats = fused_blockwise_gram(
-        U_for_features[:-1], Ut, dx=dx, dy=dy, block_t=bt, block_x=bx, block_y=by
-    )
+    with span("ks2d.stats"):
+        Ut = forward_difference_ut(U_for_ut, DT)
+        stats = fused_blockwise_gram(
+            U_for_features[:-1], Ut, dx=dx, dy=dy, block_t=bt, block_x=bx, block_y=by
+        )
     return _grid_from_stats(stats, alphas, thresholds)
 
 
 def _fused_fullfield_grid_terms(U_for_ut, U_for_features, DT, dx, dy, alphas, thresholds, names):
     """:func:`_fused_fullfield_grid` for any other stencil term list (the
     rich 9-term library and its advection subsets): kernel K2."""
-    Ut = forward_difference_ut(U_for_ut, DT)
-    stats = fused_ks_gram_terms(U_for_features[:-1], Ut, dx=dx, dy=dy, names=names)
+    with span("ks2d.stats"):
+        Ut = forward_difference_ut(U_for_ut, DT)
+        stats = fused_ks_gram_terms(U_for_features[:-1], Ut, dx=dx, dy=dy, names=names)
     return _grid_from_stats(stats, alphas, thresholds)
 
 
 def _fused_blockwise_grid_terms(U_for_ut, U_for_features, DT, dx, dy, alphas, thresholds, bt, bx, by, names):
     """:func:`_fused_blockwise_grid` for any other stencil term list: kernel K4."""
-    Ut = forward_difference_ut(U_for_ut, DT)
-    stats = fused_blockwise_gram_terms(
-        U_for_features[:-1], Ut, dx=dx, dy=dy, names=names, block_t=bt, block_x=bx, block_y=by
-    )
+    with span("ks2d.stats"):
+        Ut = forward_difference_ut(U_for_ut, DT)
+        stats = fused_blockwise_gram_terms(
+            U_for_features[:-1], Ut, dx=dx, dy=dy, names=names, block_t=bt, block_x=bx, block_y=by
+        )
     return _grid_from_stats(stats, alphas, thresholds)
 
 
 def _grid_from_stats(stats, alphas, thresholds):
     """RMS-scaled alpha x threshold STRidge grid + full-set metrics, all from
     (p, p) sufficient statistics (in their dtype: float64 from the kernels)."""
-    s = torch.sqrt(torch.diagonal(stats["G"]) / stats["n"]) + 1e-12
-    sstats = {
-        "G": stats["G"] / (s[:, None] * s[None, :]),
-        "b": stats["b"] / s,
-        "sx": stats["sx"] / s,
-        "n": stats["n"],
-        "sy": stats["sy"],
-        "syy": stats["syy"],
-    }
-    coeffs_s, _masks = stridge_grid(sstats, alphas, thresholds, max_iter=25)
-    coeffs_grid = coeffs_s / s
-    # full-set metrics from raw statistics: ||y - Xc||^2 = syy - 2c.b + c'Gc
-    resid2 = (
-        stats["syy"]
-        - 2.0 * torch.einsum("atp,p->at", coeffs_grid, stats["b"])
-        + torch.einsum("atp,pq,atq->at", coeffs_grid, stats["G"], coeffs_grid)
-    )
-    resid2 = torch.clamp(resid2, min=0.0)
-    sst = stats["syy"] - stats["sy"] ** 2 / stats["n"]
-    r2 = 1.0 - resid2 / (sst + 1e-18)
-    err = torch.sqrt(resid2 / stats["n"])
-    n_active = torch.sum(torch.abs(coeffs_grid) > 0, dim=-1)
-    return coeffs_grid, r2, err, n_active
+    with span("ks2d.grid"):
+        s = torch.sqrt(torch.diagonal(stats["G"]) / stats["n"]) + 1e-12
+        sstats = {
+            "G": stats["G"] / (s[:, None] * s[None, :]),
+            "b": stats["b"] / s,
+            "sx": stats["sx"] / s,
+            "n": stats["n"],
+            "sy": stats["sy"],
+            "syy": stats["syy"],
+        }
+        coeffs_s, _masks = stridge_grid(sstats, alphas, thresholds, max_iter=25)
+        coeffs_grid = coeffs_s / s
+        # full-set metrics from raw statistics: ||y - Xc||^2 = syy - 2c.b + c'Gc
+        resid2 = (
+            stats["syy"]
+            - 2.0 * torch.einsum("atp,p->at", coeffs_grid, stats["b"])
+            + torch.einsum("atp,pq,atq->at", coeffs_grid, stats["G"], coeffs_grid)
+        )
+        resid2 = torch.clamp(resid2, min=0.0)
+        sst = stats["syy"] - stats["sy"] ** 2 / stats["n"]
+        r2 = 1.0 - resid2 / (sst + 1e-18)
+        err = torch.sqrt(resid2 / stats["n"])
+        n_active = torch.sum(torch.abs(coeffs_grid) > 0, dim=-1)
+        return coeffs_grid, r2, err, n_active
 
 
 def _grid_solve_and_score(X_tr_s, y_tr, X_te, y_te, scale, alphas, thresholds, use_qr=False):
     """The STRidge grid on RMS-scaled train rows, on their Gram statistics
     or (``use_qr``) by QR of the rows themselves, scored on the test rows.
     Returns (coeffs[(A,T,p)], r2[(A,T)], rmse[(A,T)], n_active[(A,T)])."""
-    if use_qr:
-        coeffs_grid = stridge_qr_grid(X_tr_s, y_tr, alphas, thresholds, max_iter=25)
-    else:
-        coeffs_grid, _masks = stridge_grid(gram_stats(X_tr_s, y_tr), alphas, thresholds, max_iter=25)
-    return _score_grid(coeffs_grid / scale, X_te, y_te)
+    with span("ks2d.grid"):
+        if use_qr:
+            coeffs_grid = stridge_qr_grid(X_tr_s, y_tr, alphas, thresholds, max_iter=25)
+        else:
+            coeffs_grid, _masks = stridge_grid(gram_stats(X_tr_s, y_tr), alphas, thresholds, max_iter=25)
+        return _score_grid(coeffs_grid / scale, X_te, y_te)
 
 
 def _score_grid(coeffs_grid, X_te, y_te):
@@ -436,17 +454,18 @@ def _select_best(grid) -> dict[str, Any]:
     """Host-side selection over an (A, T) grid of (coeffs, r2, rmse,
     n_active) tensors by (R^2, -n_active, -rmse), first best in grid order.
     One bundled device->host read."""
-    coeffs_np, r2_np, rmse_np, nact_np = (t.cpu().numpy() for t in grid)
-    best = None
-    for ai, a in enumerate(GRID_ALPHAS):
-        for ti, t in enumerate(GRID_THRESHOLDS):
-            key = (float(r2_np[ai, ti]), -int(nact_np[ai, ti]), -float(rmse_np[ai, ti]))
-            if best is None or key > best["key"]:
-                best = {
-                    "key": key, "alpha": a, "threshold": t, "coeffs": coeffs_np[ai, ti],
-                    "r2_test": key[0], "rmse_test": -key[2], "n_active": -key[1],
-                }
-    return best
+    with span("ks2d.select"):
+        coeffs_np, r2_np, rmse_np, nact_np = (t.cpu().numpy() for t in grid)
+        best = None
+        for ai, a in enumerate(GRID_ALPHAS):
+            for ti, t in enumerate(GRID_THRESHOLDS):
+                key = (float(r2_np[ai, ti]), -int(nact_np[ai, ti]), -float(rmse_np[ai, ti]))
+                if best is None or key > best["key"]:
+                    best = {
+                        "key": key, "alpha": a, "threshold": t, "coeffs": coeffs_np[ai, ti],
+                        "r2_test": key[0], "rmse_test": -key[2], "n_active": -key[1],
+                    }
+        return best
 
 
 def _grid_best(best: dict[str, Any]) -> dict[str, Any]:
@@ -565,10 +584,11 @@ def _result(cfg: Ks2dBenchConfig, fr: dict[str, Any], names, coeffs: np.ndarray,
             }
     U = fr["U"]
     n_roll = int(min(cfg.rollout_steps, U.shape[0] - 1))
-    # the whole curve in one device->host read
-    errs = rollout_rmse_curve_named(
-        U, coeffs, names, n_roll, fr["DT"], fr["dx"], fr["dy"]
-    ).cpu().numpy()
+    with span("ks2d.rollout"):
+        # the whole curve in one device->host read
+        errs = rollout_rmse_curve_named(
+            U, coeffs, names, n_roll, fr["DT"], fr["dx"], fr["dy"]
+        ).cpu().numpy()
     return {
         "config": dataclasses.asdict(cfg),
         "names": names,
@@ -584,59 +604,66 @@ def _result(cfg: Ks2dBenchConfig, fr: dict[str, Any], names, coeffs: np.ndarray,
     }
 
 
-def _run_fast_pointwise_grid(cfg: Ks2dBenchConfig, fr: dict[str, Any], rng: np.random.Generator) -> dict[str, Any]:
+def _run_fast_pointwise_grid(
+    cfg: Ks2dBenchConfig, fr: dict[str, Any], rng: np.random.Generator, timer=None
+) -> dict[str, Any]:
     """Grid-search benchmark on prepared frames ``fr`` (see ``prepare_frames``
-    or :func:`pdx_torch.interop.frames_from_numpy`)."""
-    names = _term_names(cfg)
-    U_ut, U_feat = fr["U_for_ut"], fr["U_for_features"]
-    dev = U_ut.device
+    or :func:`pdx_torch.interop.frames_from_numpy`). Stage ``fit`` of
+    ``timer``, with the spans ``ks2d.stats`` (u_t and the statistics, or the
+    sampled dataset), ``ks2d.grid`` (the STRidge grid), ``ks2d.select`` (its
+    host read) and ``ks2d.rollout``."""
+    st = timer.stage if timer is not None else null_stage
+    with st("fit"):
+        names = _term_names(cfg)
+        U_ut, U_feat = fr["U_for_ut"], fr["U_for_features"]
+        dev = U_ut.device
 
-    if cfg.solver == "pallas":
-        if cfg.derivatives != "finite":
-            raise ValueError(
-                "solver='pallas' streams finite-difference stencil terms; "
-                "set derivatives='finite'"
-            )
-        # kernel statistics are float64, so the grid runs in float64
-        alphas, thresholds = _grid_tensors(torch.float64, dev)
-        DT, dx, dy = float(fr["DT"]), float(fr["dx"]), float(fr["dy"])
-        args = (U_ut, U_feat, DT, dx, dy, alphas, thresholds)
-        blocks = (int(cfg.block_t), int(cfg.block_x), int(cfg.block_y))
-        # [lap, bih, gradsq] keeps its own kernels (K1/K3), as in pdx
-        if cfg.method == "blockwise":
-            if names == TRUE_NAMES:
-                grid = _fused_blockwise_grid(*args, *blocks)
+        if cfg.solver == "pallas":
+            if cfg.derivatives != "finite":
+                raise ValueError(
+                    "solver='pallas' streams finite-difference stencil terms; "
+                    "set derivatives='finite'"
+                )
+            # kernel statistics are float64, so the grid runs in float64
+            alphas, thresholds = _grid_tensors(torch.float64, dev)
+            DT, dx, dy = float(fr["DT"]), float(fr["dx"]), float(fr["dy"])
+            args = (U_ut, U_feat, DT, dx, dy, alphas, thresholds)
+            blocks = (int(cfg.block_t), int(cfg.block_x), int(cfg.block_y))
+            # [lap, bih, gradsq] keeps its own kernels (K1/K3), as in pdx
+            if cfg.method == "blockwise":
+                if names == TRUE_NAMES:
+                    grid = _fused_blockwise_grid(*args, *blocks)
+                else:
+                    grid = _fused_blockwise_grid_terms(*args, *blocks, tuple(names))
+            elif names == TRUE_NAMES:
+                grid = _fused_fullfield_grid(*args)
             else:
-                grid = _fused_blockwise_grid_terms(*args, *blocks, tuple(names))
-        elif names == TRUE_NAMES:
-            grid = _fused_fullfield_grid(*args)
+                grid = _fused_fullfield_grid_terms(*args, tuple(names))
         else:
-            grid = _fused_fullfield_grid_terms(*args, tuple(names))
-    else:
-        Ut_size = (U_ut.shape[0] - 1) * cfg.Nx * cfg.Ny
-        n_sample = int(min(cfg.n_sample, Ut_size))
-        flat_idx = rng.choice(Ut_size, size=n_sample, replace=False)
-        perm = rng.permutation(n_sample)  # all-finite by construction (nan guards)
-        split = int(0.7 * n_sample)
-        dtype = resolve_dtype(cfg.dtype)
-        # 'auto' without a condition probe: the true dictionary is
-        # well-conditioned (Gram path); rich dictionaries take QR in float32
-        use_qr = _use_qr(cfg, lambda: cfg.dictionary != "true" and dtype != torch.float64)
+            Ut_size = (U_ut.shape[0] - 1) * cfg.Nx * cfg.Ny
+            n_sample = int(min(cfg.n_sample, Ut_size))
+            flat_idx = rng.choice(Ut_size, size=n_sample, replace=False)
+            perm = rng.permutation(n_sample)  # all-finite by construction (nan guards)
+            split = int(0.7 * n_sample)
+            dtype = resolve_dtype(cfg.dtype)
+            # 'auto' without a condition probe: the true dictionary is
+            # well-conditioned (Gram path); rich dictionaries take QR in float32
+            use_qr = _use_qr(cfg, lambda: cfg.dictionary != "true" and dtype != torch.float64)
 
-        def idx(a):
-            return torch.as_tensor(a, device=dev)
+            def idx(a):
+                return torch.as_tensor(a, device=dev)
 
-        grid = _fused_pointwise_grid(
-            U_ut, U_feat, idx(flat_idx), idx(perm[:split]), idx(perm[split:]),
-            fr["DT"], fr["dx"], fr["dy"],
-            *_grid_tensors(dtype, dev),
-            tuple(names), cfg.derivatives, use_qr,
-        )
-    best = _select_best(grid)
-    fit = {
-        "test_r2": best["r2_test"], "test_rmse": best["rmse_test"], "n_active": int(best["n_active"]),
-    }
-    return _result(cfg, fr, names, best["coeffs"], fit, {"grid_best": _grid_best(best)})
+            grid = _fused_pointwise_grid(
+                U_ut, U_feat, idx(flat_idx), idx(perm[:split]), idx(perm[split:]),
+                fr["DT"], fr["dx"], fr["dy"],
+                *_grid_tensors(dtype, dev),
+                tuple(names), cfg.derivatives, use_qr,
+            )
+        best = _select_best(grid)
+        fit = {
+            "test_r2": best["r2_test"], "test_rmse": best["rmse_test"], "n_active": int(best["n_active"]),
+        }
+        return _result(cfg, fr, names, best["coeffs"], fit, {"grid_best": _grid_best(best)})
 
 
 VALID_METHODS = {"pointwise", "blockwise", "weakform"}
@@ -644,13 +671,16 @@ VALID_REGRESSIONS = {"standard", "huber", "trimmed", "sign_constrained", "ensemb
 
 
 def run(
-    cfg: Ks2dBenchConfig, device: str | torch.device | None = None, mesh: Mesh | None = None
+    cfg: Ks2dBenchConfig, device: str | torch.device | None = None, mesh: Mesh | None = None, timer=None
 ) -> dict[str, Any]:
     """Run the benchmark on ``device`` (default: the CUDA card; without one
     this raises unless ``device="cpu"`` is given). ``mesh`` carries the
     sample-sharded Gram of the standard single fit; by default it is every
     visible card on a CUDA device and the one device on the CPU, where
-    ``pdx`` takes every JAX device (its tests' 8 virtual CPU devices too)."""
+    ``pdx`` takes every JAX device (its tests' 8 virtual CPU devices too).
+    ``timer`` (a :class:`pdx_torch.utils.profiling.StageTimer`) times the
+    stages ``prepare_frames`` and ``fit``; under a ``torch.profiler``
+    session they are spans without it."""
     if cfg.method not in VALID_METHODS:
         raise ValueError(f"method must be one of {sorted(VALID_METHODS)}, got '{cfg.method}'")
     if cfg.regression not in VALID_REGRESSIONS:
@@ -674,36 +704,38 @@ def run(
             "method='pointwise' or 'blockwise', regression='standard', "
             "grid_search=True, robust=False, correct_shift_ut=False"
         )
-    fr = prepare_frames(cfg, device)
+    fr = prepare_frames(cfg, device, timer)
     rng = np.random.default_rng(0)  # reference: main:1470
     if fast:
-        return _run_fast_pointwise_grid(cfg, fr, rng)
+        return _run_fast_pointwise_grid(cfg, fr, rng, timer)
 
-    names, X_all, y_all = build_dataset(cfg, fr, rng)
+    st = timer.stage if timer is not None else null_stage
+    with st("fit"):
+        names, X_all, y_all = build_dataset(cfg, fr, rng)
 
-    # finite filter (the reference's boolean filtering), then the split: the
-    # permutation is drawn after build_dataset's choice, over the valid rows
-    valid = torch.isfinite(X_all).all(dim=1) & torch.isfinite(y_all)
-    if not bool(valid.all()):
-        X_all, y_all = X_all[valid], y_all[valid]
-    n_rows = int(X_all.shape[0])
-    perm = rng.permutation(n_rows)
-    split = int(0.7 * n_rows)
-    tr = torch.as_tensor(perm[:split], device=X_all.device)
-    te = torch.as_tensor(perm[split:], device=X_all.device)
-    X_tr, y_tr = X_all[tr], y_all[tr]
-    X_te, y_te = X_all[te], y_all[te]
+        # finite filter (the reference's boolean filtering), then the split: the
+        # permutation is drawn after build_dataset's choice, over the valid rows
+        valid = torch.isfinite(X_all).all(dim=1) & torch.isfinite(y_all)
+        if not bool(valid.all()):
+            X_all, y_all = X_all[valid], y_all[valid]
+        n_rows = int(X_all.shape[0])
+        perm = rng.permutation(n_rows)
+        split = int(0.7 * n_rows)
+        tr = torch.as_tensor(perm[:split], device=X_all.device)
+        te = torch.as_tensor(perm[split:], device=X_all.device)
+        X_tr, y_tr = X_all[tr], y_all[tr]
+        X_te, y_te = X_all[te], y_all[te]
 
-    coeffs, reg_info = run_regression(cfg, names, X_tr, y_tr, X_te, y_te, mesh)
-    coeffs_np = coeffs.cpu().numpy()  # single transfer; host scalar reads below
+        coeffs, reg_info = run_regression(cfg, names, X_tr, y_tr, X_te, y_te, mesh)
+        coeffs_np = coeffs.cpu().numpy()  # single transfer; host scalar reads below
 
-    y_pred_tr = X_tr @ coeffs
-    y_pred_te = X_te @ coeffs
-    fit = {
-        "train_r2": float(r2_score(y_tr, y_pred_tr)),
-        "train_rmse": float(rmse(y_tr, y_pred_tr)),
-        "test_r2": float(r2_score(y_te, y_pred_te)),
-        "test_rmse": float(rmse(y_te, y_pred_te)),
-        "n_active": int((np.abs(coeffs_np) > 0).sum()),
-    }
-    return _result(cfg, fr, names, coeffs_np, fit, reg_info)
+        y_pred_tr = X_tr @ coeffs
+        y_pred_te = X_te @ coeffs
+        fit = {
+            "train_r2": float(r2_score(y_tr, y_pred_tr)),
+            "train_rmse": float(rmse(y_tr, y_pred_tr)),
+            "test_r2": float(r2_score(y_te, y_pred_te)),
+            "test_rmse": float(rmse(y_te, y_pred_te)),
+            "n_active": int((np.abs(coeffs_np) > 0).sum()),
+        }
+        return _result(cfg, fr, names, coeffs_np, fit, reg_info)

@@ -42,6 +42,7 @@ from pdx_torch.register.farneback import register_sequence_dispatch
 from pdx_torch.shard.mesh import Mesh, default_mesh, gather_leading, map_shards, maybe_shard_leading
 from pdx_torch.solve.robust import median
 from pdx_torch.solve.stridge import stridge_from_stats
+from pdx_torch.utils.profiling import StageTimer, null_stage, span
 
 FULL_TERMS = ["one", "u", "ux", "uy", "lap", "u2", "u_ux", "u_uy"]
 MODEL4_TERMS = ["one", "u", "ux", "uy", "lap", "u2"]
@@ -112,24 +113,34 @@ def _term_names(cfg: PatchDiscoveryConfig) -> list[str]:
     return MODEL4_TERMS if cfg.model == "model4" else FULL_TERMS
 
 
-def preprocess_head(cfg: PatchDiscoveryConfig, U_raw: np.ndarray, device: torch.device) -> Tensor:
+def preprocess_head(cfg: PatchDiscoveryConfig, U_raw: np.ndarray, device: torch.device, timer=None) -> Tensor:
     """The raw (T, H, W) stack shipped as it is (uint16 camera frames move
-    4x fewer bytes than float64), downsampled, cast, denoised, normalised."""
+    4x fewer bytes than float64), downsampled, cast, denoised, normalised.
+    Stage ``preprocess`` of ``timer``, with the spans ``patch.upload`` and
+    ``patch.resize_denoise``."""
     T0, H0, W0 = U_raw.shape
-    return resize_denoise_normalize(
-        device_stack(U_raw, device=device),
-        out_h=H0 // cfg.downsample, out_w=W0 // cfg.downsample,
-        sigma=cfg.denoise_sigma1, eps=1e-12, dtype_name=cfg.dtype,
-    )
+    st = timer.stage if timer is not None else null_stage
+    with st("preprocess"):
+        with span("patch.upload"):
+            U = device_stack(U_raw, device=device)
+        with span("patch.resize_denoise"):
+            return resize_denoise_normalize(
+                U, out_h=H0 // cfg.downsample, out_w=W0 // cfg.downsample,
+                sigma=cfg.denoise_sigma1, eps=1e-12, dtype_name=cfg.dtype,
+            )
 
 
-def register(cfg: PatchDiscoveryConfig, U: Tensor) -> Tensor:
-    """Farnebäck registration of the working stack, when configured."""
+def register(cfg: PatchDiscoveryConfig, U: Tensor, timer=None) -> Tensor:
+    """Farnebäck registration of the working stack, when configured: stage
+    ``register`` of ``timer`` (the chain's spans are
+    :func:`~pdx_torch.register.farneback.farneback_register_sequence`'s)."""
     if not cfg.registration:
         return U
-    return register_sequence_dispatch(
-        U, mode=cfg.register_mode, refine=cfg.register_refine, reference_compat_warp=cfg.reference_compat_warp,
-    )
+    st = timer.stage if timer is not None else null_stage
+    with st("register"):
+        return register_sequence_dispatch(
+            U, mode=cfg.register_mode, refine=cfg.register_refine, reference_compat_warp=cfg.reference_compat_warp,
+        )
 
 
 def working_stack(cfg: PatchDiscoveryConfig, U: Tensor) -> Tensor:
@@ -218,57 +229,71 @@ def heldout_eval(U: Tensor, Xg: Tensor, yg: Tensor, Xs: Tensor, spts: Tensor, ag
     return m, one_step
 
 
-def discover(cfg: PatchDiscoveryConfig, U: Tensor, mesh: Mesh | None = None) -> dict[str, Any]:
+def discover(cfg: PatchDiscoveryConfig, U: Tensor, mesh: Mesh | None = None, timer=None) -> dict[str, Any]:
     """Everything after registration, on the registered (T, H, W) stack.
     The patch fits split over ``mesh`` (default: :func:`~pdx_torch.shard.
-    mesh.default_mesh` of the stack's device) as ``cfg.mesh`` says."""
-    mesh = default_mesh(U.device) if mesh is None else mesh
-    U = working_stack(cfg, U)
-    t_len, h, w = U.shape
-    names = _term_names(cfg)
-    rng, train_pts, test_pts, t_valid, t_test = sample_patch_points(cfg, (t_len, h, w))
-    P, p = train_pts.shape[0], len(names)
+    mesh.default_mesh` of the stack's device) as ``cfg.mesh`` says. Stage
+    ``discover`` of ``timer``, with the spans ``patch.datasets``,
+    ``patch.fits``, ``patch.readback``, ``patch.aggregate`` and
+    ``patch.heldout``."""
+    st = timer.stage if timer is not None else null_stage
+    with st("discover"):
+        return _discover(cfg, U, default_mesh(U.device) if mesh is None else mesh)
 
-    d_tr, d_te = patch_datasets(cfg, U, train_pts, test_pts)
-    # the patch axis split over the mesh: padding repeats the last patch and
-    # is sliced off below, so results are the single-device ones
-    (d_tr, d_te), P = maybe_shard_leading((d_tr, d_te), cfg.mesh, mesh)
-    parts = map_shards(
-        lambda a, b: all_patch_fits(a, b, names=names, alpha=cfg.alpha, threshold=cfg.threshold), (d_tr, d_te), mesh
-    )
-    n_shard_devices = len(parts)  # shards the patch axis was split into
-    coeffs, m_tr_v, m_te_v = gather_leading(parts, mesh)
-    # one read of the whole fit result
-    host = torch.cat(
-        [coeffs] + [torch.stack([m[k] for k in METRIC_KEYS], dim=-1) for m in (m_tr_v, m_te_v)], dim=-1
-    )[:P].cpu().numpy()
+
+def _discover(cfg: PatchDiscoveryConfig, U: Tensor, mesh: Mesh) -> dict[str, Any]:
+    with span("patch.datasets"):
+        U = working_stack(cfg, U)
+        t_len, h, w = U.shape
+        names = _term_names(cfg)
+        rng, train_pts, test_pts, t_valid, t_test = sample_patch_points(cfg, (t_len, h, w))
+        P, p = train_pts.shape[0], len(names)
+        d_tr, d_te = patch_datasets(cfg, U, train_pts, test_pts)
+
+    with span("patch.fits"):
+        # the patch axis split over the mesh: padding repeats the last patch and
+        # is sliced off below, so results are the single-device ones
+        (d_tr, d_te), P = maybe_shard_leading((d_tr, d_te), cfg.mesh, mesh)
+        parts = map_shards(
+            lambda a, b: all_patch_fits(a, b, names=names, alpha=cfg.alpha, threshold=cfg.threshold),
+            (d_tr, d_te), mesh,
+        )
+        n_shard_devices = len(parts)  # shards the patch axis was split into
+        coeffs, m_tr_v, m_te_v = gather_leading(parts, mesh)
+    with span("patch.readback"):
+        # one read of the whole fit result
+        host = torch.cat(
+            [coeffs] + [torch.stack([m[k] for k in METRIC_KEYS], dim=-1) for m in (m_tr_v, m_te_v)], dim=-1
+        )[:P].cpu().numpy()
     C = host[:, :p]
     m_tr_np, m_te_np = host[:, p : p + 5], host[:, p + 5 :]
     patch_train_metrics = [dict(zip(METRIC_KEYS, map(float, row))) for row in m_tr_np]
     patch_test_metrics = [dict(zip(METRIC_KEYS, map(float, row))) for row in m_te_np]
 
-    # stability aggregation (reference :434-443: a plain median for the aggregate)
-    nonzero = np.abs(C) > cfg.threshold
-    freq = nonzero.mean(axis=0)
-    med = np.median(C, axis=0)
-    q25 = np.percentile(C, 25, axis=0)
-    q75 = np.percentile(C, 75, axis=0)
-    sign_stability = np.mean(np.sign(C) == np.sign(med + 1e-12), axis=0)
-    keep = freq >= cfg.stability_freq
-    agg = np.where(keep, med, 0.0)
+    with span("patch.aggregate"):
+        # stability aggregation (reference :434-443: a plain median for the aggregate)
+        nonzero = np.abs(C) > cfg.threshold
+        freq = nonzero.mean(axis=0)
+        med = np.median(C, axis=0)
+        q25 = np.percentile(C, 25, axis=0)
+        q75 = np.percentile(C, 75, axis=0)
+        sign_stability = np.mean(np.sign(C) == np.sign(med + 1e-12), axis=0)
+        keep = freq >= cfg.stability_freq
+        agg = np.where(keep, med, 0.0)
 
-    # held-out evaluation (reference :446-465)
-    rs = cfg.rs
-    gpts = _safe_sample_points(rng, t_test, h, w, rs, 800)
-    dg = _local_poly(cfg, U, gpts)
-    spts = _safe_sample_points(rng, t_valid[:-1], h, w, rs, 1200)
-    ds = _local_poly(cfg, U, spts)
-    m_test, one_step = heldout_eval(
-        U, feature_matrix(dg, names), dg[:, 1], feature_matrix(ds, names),
-        torch.as_tensor(spts, device=U.device), torch.as_tensor(agg, dtype=U.dtype, device=U.device), cfg.dt,
-    )
-    keys = list(m_test)
-    vals = torch.stack([m_test[k] for k in keys] + [one_step]).cpu().tolist()
+    with span("patch.heldout"):
+        # held-out evaluation (reference :446-465)
+        rs = cfg.rs
+        gpts = _safe_sample_points(rng, t_test, h, w, rs, 800)
+        dg = _local_poly(cfg, U, gpts)
+        spts = _safe_sample_points(rng, t_valid[:-1], h, w, rs, 1200)
+        ds = _local_poly(cfg, U, spts)
+        m_test, one_step = heldout_eval(
+            U, feature_matrix(dg, names), dg[:, 1], feature_matrix(ds, names),
+            torch.as_tensor(spts, device=U.device), torch.as_tensor(agg, dtype=U.dtype, device=U.device), cfg.dt,
+        )
+        keys = list(m_test)
+        vals = torch.stack([m_test[k] for k in keys] + [one_step]).cpu().tolist()
     m_test = dict(zip(keys, vals[:-1]))
     one_step_rmse = vals[-1]
 
@@ -307,17 +332,23 @@ def run(
     U_raw: np.ndarray | None = None,
     device: str | torch.device | None = None,
     mesh: Mesh | None = None,
+    timer=None,
 ) -> dict[str, Any]:
     """Patch discovery on ``U_raw`` (a (T, H, W) frame stack), or on the
     first ``cfg.max_images`` TIFFs of ``cfg.data_dir``. Runs on the CUDA
     card unless ``device="cpu"``; raises without a card otherwise. ``mesh``
     (default: every visible card on a CUDA device, the one device on the
-    CPU, where ``pdx`` takes every JAX device) carries the patch fits."""
+    CPU, where ``pdx`` takes every JAX device) carries the patch fits.
+    ``timer`` (a :class:`pdx_torch.utils.profiling.StageTimer`) times the
+    stages ``load_images`` (without ``U_raw``), ``preprocess``, ``register``
+    and ``discover``."""
     dev = resolve_device(device)
     resolve_dtype(cfg.dtype)  # refuse an unknown dtype before any work
     if U_raw is None:
-        U_raw = load_images(cfg.data_dir, max_images=cfg.max_images, dtype=np.uint16)
-    return discover(cfg, register(cfg, preprocess_head(cfg, U_raw, dev)), mesh)
+        st = timer.stage if timer is not None else null_stage
+        with st("load_images"):
+            U_raw = load_images(cfg.data_dir, max_images=cfg.max_images, dtype=np.uint16)
+    return discover(cfg, register(cfg, preprocess_head(cfg, U_raw, dev, timer), timer), mesh, timer)
 
 
 def _safe_sample_points(rng, t_indices, h, w, rs, n) -> np.ndarray:
@@ -409,6 +440,7 @@ def cmd_patch_discover(argv: list[str]) -> int:
     parser.add_argument("--model", choices=["full", "model4"], default="full")
     parser.add_argument("--skip", type=int, default=25, help="crop margin in working pixels")
     parser.add_argument("--subsample", type=int, default=12, help="spatial subsample stride")
+    parser.add_argument("--profile", action="store_true", help="print the stages' seconds and the program's spans")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     cfg = PatchDiscoveryConfig(
@@ -419,7 +451,10 @@ def cmd_patch_discover(argv: list[str]) -> int:
         samples_per_patch=args.samples_per_patch, model=args.model,
         skip=args.skip, subsample=args.subsample,
     )
-    out = run(cfg, device=args.device)
+    timer = StageTimer() if args.profile else None
+    out = run(cfg, device=args.device, timer=timer)
+    if timer is not None:
+        print(timer.report())
     print(f"Patches fit: {out['n_patches']}")
     print(f"Aggregated PDE: {out['equation']}")
     m = out["global_test_metrics"]

@@ -28,7 +28,7 @@ from pdx_torch.ops.filters import gaussian_filter_reflect
 from pdx_torch.ops.interp import resize_bilinear
 from pdx_torch.register.farneback import farneback_flow_pairs
 from pdx_torch.solve.lasso import lasso_fista, lstsq_solve
-from pdx_torch.utils.profiling import null_stage
+from pdx_torch.utils.profiling import StageTimer, count, null_stage
 
 TERM_NAMES = [
     "constant", "rho", "drho_dx", "drho_dy", "laplacian", "transport",
@@ -144,7 +144,9 @@ def run(
     first ``cfg.max_images`` TIFFs of ``cfg.data_dir``. Runs on the CUDA
     card unless ``device="cpu"``; raises without a card otherwise.
     ``timer`` (a :class:`pdx_torch.utils.profiling.StageTimer`) times the
-    stages."""
+    stages. While the tracer records, the ``discover_lasso_sweep`` span gets
+    the counts ``fista.iterations`` (summed over the alphas, read with the
+    one readback) and ``fista.host_syncs``."""
     dev = resolve_device(device)
     dtype = resolve_dtype(cfg.dtype)
     st = timer.stage if timer is not None else null_stage
@@ -157,20 +159,26 @@ def run(
         imgs_ds, imgs_n = _normalized_pairs_input(cfg, images)
     with st("pair_flows"):
         flow_u, flow_v = _pair_flows(cfg, imgs_n)
-    with st("discover_lasso_sweep"):
+    with st("discover_lasso_sweep") as sweep:
         alphas = torch.as_tensor(cfg.alphas, dtype=imgs_ds.dtype, device=dev)
-        coefs, intercepts, ss_res_v, mae_v, ss_tot, n_eff, _, _ = _discover(
+        coefs, intercepts, ss_res_v, mae_v, ss_tot, n_eff, n_iter, syncs = _discover(
             imgs_ds, flow_u, flow_v, alphas, dt=cfg.dt, dx=cfg.dx, dy=cfg.dy, spatial_smooth=cfg.spatial_smooth,
         )
+        count("fista.host_syncs", syncs)
     with st("host_readback"):
-        # one read of everything the host needs
+        # one read of everything the host needs; the iterations only while
+        # the sweep's span records them
         A, p = coefs.shape
-        host = torch.cat([
-            coefs.reshape(-1), intercepts, ss_res_v, mae_v, torch.stack([ss_tot, n_eff, _mean_speed(flow_u, flow_v)])
-        ]).cpu().numpy()
+        parts = [coefs.reshape(-1), intercepts, ss_res_v, mae_v,
+                 torch.stack([ss_tot, n_eff, _mean_speed(flow_u, flow_v)])]
+        if sweep is not None:
+            parts.append(n_iter.to(coefs.dtype))
+        host = torch.cat(parts).cpu().numpy()
         coefs, rest = host[: A * p].reshape(A, p), host[A * p :]
         intercepts, ss_res_v, mae_v = rest[: 3 * A].reshape(3, A)
-        ss_tot, n_eff, mean_speed = (float(v) for v in rest[3 * A :])
+        ss_tot, n_eff, mean_speed = (float(v) for v in rest[3 * A : 3 * A + 3])
+    if sweep is not None:
+        count("fista.iterations", int(rest[3 * A + 3 :].sum()), into=sweep)
 
     results = {}
     for ai, alpha in enumerate(cfg.alphas):
@@ -261,6 +269,7 @@ def cmd_transport(argv: list[str]) -> int:
     parser.add_argument("--max-images", type=int, default=51)
     parser.add_argument("--downsample", type=int, default=4)
     parser.add_argument("--quick", action="store_true", help="10-frame 8x-downsample lstsq smoke test")
+    parser.add_argument("--profile", action="store_true", help="print the stages' seconds and the program's spans")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     cfg = TransportConfig(
@@ -274,7 +283,10 @@ def cmd_transport(argv: list[str]) -> int:
         print(f"R2 (lstsq, all terms): {q['r2']:.6f}")
         print(q["physics_check"])
         return 0
-    out = run(cfg, device=args.device)
+    timer = StageTimer() if args.profile else None
+    out = run(cfg, timer=timer, device=args.device)
+    if timer is not None:
+        print(timer.report())
     print(f"Mean optical-flow speed: {out['mean_flow_speed']:.3f} px/frame")
     for alpha, r in out["results"].items():
         print(f"\nalpha={alpha}: R2={r['r2']:.6f}, active={len(r['active_terms'])}/{len(out['term_names'])}")

@@ -26,6 +26,7 @@ by tap: the same sums in another order.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -34,6 +35,7 @@ from torch import Tensor
 
 from pdx_torch.ops.filters import correlate1d_symmetric, symmetric_windows
 from pdx_torch.ops.interp import resize_bilinear, sample_reflect_xy, warp_flow, warp_flow_batch
+from pdx_torch.utils.profiling import count, span
 
 # Pixel-pairs per batched pyramid in batched_pair_flows: bounds the blur's
 # sliding windows (5 fields x 25 taps x 4 bytes a pixel-pair at winsize 25,
@@ -172,6 +174,10 @@ def farneback_flow(
     around the small residual displacement, where the quadratic model holds
     (the plain update stops at ~0.8x of a translation; ``refine=0`` is the
     strict cv2-equivalent scheme).
+
+    Adds the pairs to the tracer's count ``farneback.flows``; each pyramid
+    level is a span ``farneback.level`` and each re-warp pass a span
+    ``farneback.refine``, each counting its ``farneback.iterations``.
     """
     H, W = img1.shape[-2], img1.shape[-1]
     n = poly_n // 2
@@ -189,25 +195,30 @@ def farneback_flow(
             return img
         return resize_bilinear(img, shp[0], shp[1])
 
+    count("farneback.flows", math.prod(img1.shape[:-2]))
     flow = None  # stacked (d_row, d_col)
     for shp in reversed(shapes):
-        exp1 = _poly_exp(to_shape(img1, shp), n, poly_sigma)
-        exp2 = _poly_exp(to_shape(img2, shp), n, poly_sigma)
-        if flow is None:
-            flow = torch.zeros((2,) + img1.shape[:-2] + shp, dtype=img1.dtype, device=img1.device)
-        else:
-            up = resize_bilinear(flow, shp[0], shp[1])
-            flow = torch.stack([up[0] * (shp[0] / flow.shape[-2]), up[1] * (shp[1] / flow.shape[-1])])
-        for _ in range(iterations):
-            flow = _flow_iteration(exp1, exp2, flow, winsize, gaussian_win)
+        with span("farneback.level"):
+            exp1 = _poly_exp(to_shape(img1, shp), n, poly_sigma)
+            exp2 = _poly_exp(to_shape(img2, shp), n, poly_sigma)
+            if flow is None:
+                flow = torch.zeros((2,) + img1.shape[:-2] + shp, dtype=img1.dtype, device=img1.device)
+            else:
+                up = resize_bilinear(flow, shp[0], shp[1])
+                flow = torch.stack([up[0] * (shp[0] / flow.shape[-2]), up[1] * (shp[1] / flow.shape[-1])])
+            for _ in range(iterations):
+                flow = _flow_iteration(exp1, exp2, flow, winsize, gaussian_win)
+            count("farneback.iterations", iterations)
 
     # re-warp refinement at full resolution; exp1 is the finest level's
     for _ in range(int(refine)):
-        expw = _poly_exp(warp_flow(img2, flow[0], flow[1]), n, poly_sigma)
-        d = torch.zeros_like(flow)
-        for _ in range(2):
-            d = _flow_iteration(exp1, expw, d, winsize, gaussian_win)
-        flow = flow + d
+        with span("farneback.refine"):
+            expw = _poly_exp(warp_flow(img2, flow[0], flow[1]), n, poly_sigma)
+            d = torch.zeros_like(flow)
+            for _ in range(2):
+                d = _flow_iteration(exp1, expw, d, winsize, gaussian_win)
+            flow = flow + d
+            count("farneback.iterations", 2)
     return flow[0], flow[1]
 
 
@@ -256,6 +267,9 @@ def farneback_register_sequence(
     ``warp_sign=+1`` warps by mov(x + flow(x)), which aligns under the cv2
     convention; the reference builds its map as ``x - flow``, which doubles
     the residual misalignment: ``warp_sign=-1`` reproduces it.
+
+    Each step is a span ``farneback.chain_flow`` (its flow, then a span
+    ``farneback.smooth_warp``).
     """
     flow_kwargs.setdefault("refine", 1)
     flow_ds = _chain_flow_ds(flow_kwargs.pop("flow_ds", None), U.shape[-2], U.shape[-1], U.device)
@@ -263,9 +277,11 @@ def farneback_register_sequence(
     out = torch.empty_like(U)
     out[0] = U[0]
     for i in range(1, U.shape[0]):
-        fx, fy = _chain_step_flow(out[i - 1], U[i], f32=f32, flow_ds=flow_ds, kw=flow_kwargs)
-        fs = _blur(torch.stack([fx, fy]), flow_smooth_ksize, flow_smooth_sigma, True).to(U.dtype)
-        out[i] = warp_flow(U[i], warp_sign * fs[0], warp_sign * fs[1])
+        with span("farneback.chain_flow"):
+            fx, fy = _chain_step_flow(out[i - 1], U[i], f32=f32, flow_ds=flow_ds, kw=flow_kwargs)
+            with span("farneback.smooth_warp"):
+                fs = _blur(torch.stack([fx, fy]), flow_smooth_ksize, flow_smooth_sigma, True).to(U.dtype)
+                out[i] = warp_flow(U[i], warp_sign * fs[0], warp_sign * fs[1])
     return out
 
 

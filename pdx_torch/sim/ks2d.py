@@ -22,6 +22,7 @@ import torch
 from torch import Tensor
 
 from pdx_torch.ops.fd import gradients_periodic, laplacian_periodic
+from pdx_torch.utils.profiling import count
 
 
 @dataclass(frozen=True)
@@ -82,7 +83,8 @@ def simulate_ks2d(
     """Explicit-Euler KS-2D. Returns (U[(n_frames, Nx, Ny)], dx, dy, DT).
 
     The state is advanced, nan_to_num-guarded, and saved whenever
-    ``step % save_every == 0``.
+    ``step % save_every == 0``. Adds the steps to the tracer's count
+    ``ks2d.euler_steps``.
     """
     if u0 is None:
         u0 = initial_condition(cfg)
@@ -95,6 +97,7 @@ def simulate_ks2d(
             u = torch.nan_to_num(u + dt * ks_rhs(u, dx, dy))
             if k == 0:
                 U[frame] = u
+    count("ks2d.euler_steps", cfg.n_frames * se)
     return U, dx, dy, cfg.DT
 
 

@@ -26,6 +26,7 @@ from pdx_torch.ops.linalg import (
     masked_ridge_solve,
     standardized_stats,
 )
+from pdx_torch.utils.profiling import count
 
 
 @dataclass
@@ -50,11 +51,15 @@ def threshold_loop(
     a float or a tensor of the batch shape B.
 
     Stops once no mask of the batch changed: the next solve would repeat
-    this one, so running on to ``max_iter`` changes nothing.
+    this one, so running on to ``max_iter`` changes nothing. Adds its passes
+    to the tracer's count ``stridge.iterations`` and, on a CUDA tensor, its
+    ``torch.equal`` checks (each a host sync) to ``stridge.host_syncs``.
     """
     threshold = torch.as_tensor(threshold, dtype=c0.dtype, device=c0.device)[..., None]
     c, m = c0, m0
+    passes = 0
     for _ in range(max_iter):
+        passes += 1
         if sign_fn is not None:
             c = sign_fn(c)
         small = torch.abs(c) < threshold
@@ -66,6 +71,9 @@ def threshold_loop(
         c, m = solve_fn(m_new), m_new
         if sign_fn is not None:
             c = sign_fn(c)
+    count("stridge.iterations", passes)
+    if m.is_cuda:
+        count("stridge.host_syncs", passes)
     return c, m
 
 

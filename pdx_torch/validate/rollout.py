@@ -26,6 +26,7 @@ from torch import Tensor
 
 from pdx_torch.library.dictionaries import FOURTH_ORDER_TERMS, fourth_order_term_fields, real_image_term_fields
 from pdx_torch.ops.fd import gradients_periodic, laplacian_periodic
+from pdx_torch.utils.profiling import count
 
 ANALYZE13 = (
     "one", "u", "ux", "uy", "uxx", "uyy", "lap", "u2", "u_ux", "u_uy", "u3", "ux2", "uy2",
@@ -298,12 +299,14 @@ def rollout_rmse_curve(
     U: Tensor, rhs: Callable[[Tensor], Tensor], n_steps: int, dt: float
 ) -> Tensor:
     """Single-trajectory rollout from U[0]: errs[k] = rmse(U[k+1], u_hat_k).
-    The per-step errors stay on the device and are stacked once."""
+    The per-step errors stay on the device and are stacked once. Adds the
+    steps to the tracer's count ``rollout.steps``."""
     u = U[0]
     errs = []
     for k in range(n_steps):
         u = u + dt * rhs(u)
         errs.append(torch.sqrt(torch.mean((U[k + 1] - u) ** 2)))
+    count("rollout.steps", n_steps)
     return torch.stack(errs)
 
 

@@ -23,6 +23,7 @@ import torch
 
 from pdx_torch.ops.kernels import fused_blockwise as tfb
 from pdx_torch.ops.kernels import fused_gram as tfg
+from pdx_torch.utils.profiling import total
 
 KEYS = ("G", "b", "sx", "syy", "sy", "n")
 
@@ -88,10 +89,10 @@ class TestK1Plain:
 
     def test_cpu_tensor_takes_plain_version(self):
         U, Ut = _inputs((4, 16, 16), 3)
-        before = tfg.fused_ks_gram.launches
+        before = total("fused_ks_gram.launches")
         got = tfg.fused_ks_gram(torch.from_numpy(U), torch.from_numpy(Ut), dx=0.5, dy=0.5)
         want = tfg.fused_ks_gram_reference(torch.from_numpy(U), torch.from_numpy(Ut), 0.5, 0.5)
-        assert tfg.fused_ks_gram.launches == before
+        assert total("fused_ks_gram.launches") == before
         for k in KEYS:
             torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
 
@@ -136,12 +137,12 @@ class TestK3Plain:
 
     def test_cpu_tensor_takes_plain_version(self):
         U, Ut = _inputs((7, 20, 20), 6)
-        before = tfb.fused_blockwise_gram.launches
+        before = total("fused_blockwise_gram.launches")
         got = tfb.fused_blockwise_gram(torch.from_numpy(U), torch.from_numpy(Ut), dx=0.5, dy=0.5, block_t=2)
         want = tfb.fused_blockwise_gram_reference(
             torch.from_numpy(U), torch.from_numpy(Ut), 0.5, 0.5, block_t=2, block_x=8, block_y=8
         )
-        assert tfb.fused_blockwise_gram.launches == before
+        assert total("fused_blockwise_gram.launches") == before
         for k in KEYS:
             torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
 
@@ -184,10 +185,10 @@ class TestK2Plain:
 
     def test_cpu_tensor_takes_plain_version(self):
         U, Ut = _inputs((4, 16, 16), 5)
-        before = tfg.fused_ks_gram_terms.launches
+        before = total("fused_ks_gram_terms.launches")
         got = tfg.fused_ks_gram_terms(torch.from_numpy(U), torch.from_numpy(Ut), dx=0.5, dy=0.5, names=ADV)
         want = tfg._terms_reference(torch.from_numpy(U), torch.from_numpy(Ut), 0.5, 0.5, ADV)
-        assert tfg.fused_ks_gram_terms.launches == before
+        assert total("fused_ks_gram_terms.launches") == before
         for k in KEYS:
             torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
 
@@ -235,12 +236,12 @@ class TestK4Plain:
 
     def test_cpu_tensor_takes_plain_version(self):
         U, Ut = _inputs((7, 20, 20), 5)
-        before = tfb.fused_blockwise_gram_terms.launches
+        before = total("fused_blockwise_gram_terms.launches")
         got = tfb.fused_blockwise_gram_terms(torch.from_numpy(U), torch.from_numpy(Ut), dx=0.5, dy=0.5, names=NO_ADV, block_t=2)
         want = tfb.fused_blockwise_gram_terms_reference(
             torch.from_numpy(U), torch.from_numpy(Ut), 0.5, 0.5, names=NO_ADV, block_t=2, block_x=8, block_y=8
         )
-        assert tfb.fused_blockwise_gram_terms.launches == before
+        assert total("fused_blockwise_gram_terms.launches") == before
         for k in KEYS:
             torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
 
@@ -520,13 +521,13 @@ def test_term_kernels_match_plain_on_card(cuda, shape, blocks, names):
 @pytest.mark.gpu
 def test_wrappers_count_launches_and_refuse_oversized_blocks(cuda):
     U, Ut = (torch.from_numpy(a).to(cuda) for a in _inputs((4, 300, 300), 8))
-    wrappers = (tfg.fused_ks_gram, tfb.fused_blockwise_gram, tfg.fused_ks_gram_terms, tfb.fused_blockwise_gram_terms)
-    before = [w.launches for w in wrappers]
+    wrappers = ("fused_ks_gram", "fused_blockwise_gram", "fused_ks_gram_terms", "fused_blockwise_gram_terms")
+    before = [total(f"{w}.launches") for w in wrappers]
     tfg.fused_ks_gram(U, Ut, dx=1.0, dy=1.0)
     tfb.fused_blockwise_gram(U, Ut, dx=1.0, dy=1.0)
     tfg.fused_ks_gram_terms(U, Ut, dx=1.0, dy=1.0)
     tfb.fused_blockwise_gram_terms(U, Ut, dx=1.0, dy=1.0, names=RICH)
-    assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    assert [total(f"{w}.launches") for w in wrappers] == [b + 1 for b in before]
     with pytest.raises(ValueError, match="shared memory"):
         tfb.fused_blockwise_gram(U, Ut, dx=1.0, dy=1.0, block_x=300, block_y=300)
     with pytest.raises(ValueError, match="shared memory"):

@@ -38,8 +38,7 @@ import pdx_torch.pipelines.ks2d_bench as tb
 from pdx.ops.linalg import gram_stats as jgram
 from pdx_torch.__main__ import main as cli_main
 from pdx_torch.interop import frames_from_numpy, stats_from_numpy
-from pdx_torch.ops.kernels.fused_blockwise import fused_blockwise_gram, fused_blockwise_gram_terms
-from pdx_torch.ops.kernels.fused_gram import fused_ks_gram, fused_ks_gram_terms
+from pdx_torch.utils.profiling import total
 
 SMALL = dict(grid_search=True, Nx=32, Ny=32, n_seconds=0.2)
 CASES = {
@@ -89,31 +88,31 @@ def test_auto_f64_matches_pdx():
 
 
 @pytest.mark.parametrize("case,counter", [
-    ("pallas_f32", fused_ks_gram),
-    ("pallas_blockwise_f32", fused_blockwise_gram),
+    ("pallas_f32", "fused_ks_gram.launches"),
+    ("pallas_blockwise_f32", "fused_blockwise_gram.launches"),
 ])
 def test_pallas_paths_match_pdx_interpret(case, counter):
     """On CPU tensors the K1/K3 wrappers take their plain versions (no launch)."""
-    before = counter.launches
+    before = total(counter)
     got, want = _port_run(case), _pdx_run(case)
-    assert counter.launches == before
+    assert total(counter) == before
     np.testing.assert_allclose(got["coeffs"], want["coeffs"], rtol=1e-3)
     assert _worst_gt(got) < 1.0 and _worst_gt(want) < 1.0
     assert np.isfinite([got["rollout"][k] for k in ("first", "last", "mean")]).all()
 
 
 @pytest.mark.parametrize("case,counter,n_terms", [
-    ("pallas_rich_f32", fused_ks_gram_terms, 9),
-    ("pallas_blockwise_rich_f32", fused_blockwise_gram_terms, 9),
-    ("pallas_adv_f32", fused_ks_gram_terms, 5),
-    ("pallas_blockwise_noadv_f32", fused_blockwise_gram_terms, 7),
+    ("pallas_rich_f32", "fused_ks_gram_terms.launches", 9),
+    ("pallas_blockwise_rich_f32", "fused_blockwise_gram_terms.launches", 9),
+    ("pallas_adv_f32", "fused_ks_gram_terms.launches", 5),
+    ("pallas_blockwise_noadv_f32", "fused_blockwise_gram_terms.launches", 7),
 ])
 def test_term_list_pallas_paths_match_pdx_interpret(case, counter, n_terms):
     """Term lists other than [lap, bih, gradsq] go to K2/K4 (plain versions
     on CPU tensors: no launch) and match pdx's generic Pallas kernels."""
-    before = counter.launches
+    before = total(counter)
     got, want = _port_run(case), _pdx_run(case)
-    assert counter.launches == before
+    assert total(counter) == before
     assert got["names"] == want["names"] and len(got["coeffs"]) == n_terms
     c, w = np.asarray(got["coeffs"]), np.asarray(want["coeffs"])
     np.testing.assert_allclose(c, w, rtol=1e-3, atol=1e-3 * np.abs(w).max())
@@ -149,9 +148,9 @@ def test_perturbed_blockwise_rich_matches_pdx():
     denoised in time and space, rich blockwise statistics (K4's plain
     version here). float32 as the Pallas cases: coefficients at rtol 1e-3."""
     cfg = dict(SMALL, dtype="float32", **PERTURBED)
-    before = fused_blockwise_gram_terms.launches
+    before = total("fused_blockwise_gram_terms.launches")
     got, want = tb.run(tb.Ks2dBenchConfig(**cfg), "cpu"), jb.run(jb.Ks2dBenchConfig(**cfg))
-    assert fused_blockwise_gram_terms.launches == before
+    assert total("fused_blockwise_gram_terms.launches") == before
     c, w = np.asarray(got["coeffs"]), np.asarray(want["coeffs"])
     assert len(c) == 9 and np.isfinite(c).all()
     np.testing.assert_allclose(c, w, rtol=1e-3, atol=1e-3 * np.abs(w).max())

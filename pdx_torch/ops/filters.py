@@ -32,6 +32,7 @@ import torch
 from torch import Tensor
 
 from pdx_torch.ops.fd import _gradient_edge1
+from pdx_torch.utils.graphs import constant_cache
 
 
 def time_smooth_moving_average(U: Tensor, window: int) -> Tensor:
@@ -89,7 +90,7 @@ def _reflect_sym_np(idx: np.ndarray, L: int) -> np.ndarray:
     return idx
 
 
-@lru_cache(maxsize=256)
+@constant_cache(maxsize=256)
 def _sym_pad_index(L: int, n: int, device: torch.device) -> Tensor:
     """Indices of a line of length L padded by n on each side, symmetric."""
     return torch.as_tensor(_reflect_sym_np(np.arange(-n, L + n), L), device=device)

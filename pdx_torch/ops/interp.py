@@ -19,11 +19,11 @@ repeated), as OpenCV's remap border does; the Gaussian filters of
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 from torch import Tensor
+
+from pdx_torch.utils.graphs import constant_cache
 
 
 def bilinear_sample_periodic(f: Tensor, x: Tensor, y: Tensor) -> Tensor:
@@ -106,7 +106,7 @@ def _reflect101_index(i: Tensor, n: int) -> Tensor:
     return _fold101(i, n, max(2 * (n - 1), 1))
 
 
-@lru_cache(maxsize=64)
+@constant_cache(maxsize=64)
 def _fold_sizes(H: int, W: int, device: torch.device) -> tuple[Tensor, Tensor]:
     """(n, period) per coordinate row (rows: H, cols: W) for reflect-101
     folding of stacked (x, y) indices; a size of 1 folds everything to 0."""
@@ -234,7 +234,7 @@ def resize_matrix(L: int, out: int) -> np.ndarray:
     return M
 
 
-@lru_cache(maxsize=256)
+@constant_cache(maxsize=256)
 def _resize_matrix_t(L: int, out: int, dtype: torch.dtype, device: torch.device) -> Tensor:
     return torch.as_tensor(resize_matrix(L, out), dtype=dtype, device=device)
 

@@ -26,8 +26,9 @@ by tap: the same sums in another order.
 
 from __future__ import annotations
 
+import functools
 import math
-from functools import lru_cache
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ from torch import Tensor
 
 from pdx_torch.ops.filters import correlate1d_symmetric, symmetric_windows
 from pdx_torch.ops.interp import resize_bilinear, sample_reflect_xy, warp_flow, warp_flow_batch
+from pdx_torch.utils.graphs import StepGraph, constant_cache
 from pdx_torch.utils.profiling import count, span
 
 # Pixel-pairs per batched pyramid in batched_pair_flows: bounds the blur's
@@ -64,7 +66,7 @@ def _make_invG(n: int, sigma: float) -> tuple[np.ndarray, np.ndarray, np.ndarray
     return g1, x, np.linalg.inv(G)
 
 
-@lru_cache(maxsize=32)
+@constant_cache(maxsize=32)
 def _poly_exp_operators(n: int, sigma: float, dtype: torch.dtype, device: torch.device) -> tuple[Tensor, Tensor]:
     """(Kr (K, 3), M (3K, 6)): the row kernels [g, g x, g x^2], and the
     column kernels of the six moments with invG folded in, so that
@@ -97,7 +99,7 @@ def _poly_exp(f: Tensor, n: int, sigma: float) -> Tensor:
     return coef.movedim(-1, 0).contiguous()
 
 
-@lru_cache(maxsize=32)
+@constant_cache(maxsize=32)
 def _blur_taps(ksize: int, sigma: float, gaussian: bool, dtype: torch.dtype, device: torch.device) -> Tensor:
     n = ksize // 2
     if gaussian:
@@ -116,7 +118,7 @@ def _blur(f: Tensor, ksize: int, sigma: float, gaussian: bool) -> Tensor:
     return correlate1d_symmetric(correlate1d_symmetric(f, k, f.ndim - 2), k, f.ndim - 1)
 
 
-@lru_cache(maxsize=64)
+@constant_cache(maxsize=64)
 def _pixel_grid(H: int, W: int, dtype: torch.dtype, device: torch.device) -> Tensor:
     """(2, H, W): each pixel's (row, col)."""
     r = torch.arange(H, dtype=dtype, device=device)
@@ -232,10 +234,15 @@ def _chain_flow_ds(flow_ds: int | None, H: int, W: int, device: torch.device) ->
     return max(1, ds)
 
 
-def _chain_step_flow(ref: Tensor, cur: Tensor, *, f32: torch.dtype, flow_ds: int, kw: dict) -> tuple[Tensor, Tensor]:
-    """One chain step's flow, computed at 1/flow_ds resolution in ``f32``
-    and returned at full resolution and scale."""
+def _chain_step(ref: Tensor, cur: Tensor, *, flow_ds: int, warp_sign: float, ksize: int, sigma: float,
+                kw: dict) -> Tensor:
+    """One chain step, the eager one and what a chain graph captures: the
+    flow from ``ref`` to ``cur`` at 1/flow_ds resolution, in float32 when
+    the frames are float64, returned to full resolution and scale, smoothed
+    (``ksize`` taps, ``sigma``) and cast to the frames' dtype; ``cur`` warped
+    by ``warp_sign`` times it."""
     H, W = ref.shape[-2], ref.shape[-1]
+    f32 = torch.float32 if cur.dtype == torch.float64 else cur.dtype
     a, b = ref.to(f32), cur.to(f32)
     if flow_ds > 1:
         a = resize_bilinear(a, H // flow_ds, W // flow_ds)
@@ -244,7 +251,28 @@ def _chain_step_flow(ref: Tensor, cur: Tensor, *, f32: torch.dtype, flow_ds: int
     if flow_ds > 1:
         fx = resize_bilinear(fx, H, W) * (H / fx.shape[-2])
         fy = resize_bilinear(fy, H, W) * (W / fy.shape[-1])
-    return fx, fy
+    with span("farneback.smooth_warp"):
+        fs = _blur(torch.stack([fx, fy]), ksize, sigma, True).to(cur.dtype)
+        return warp_flow(cur, warp_sign * fs[0], warp_sign * fs[1])
+
+
+# The chain's step graphs by (frame shape, dtype, device, the step's
+# settings), least recently used first; an evicted one frees its graph and
+# its memory pool.
+_STEP_GRAPHS: OrderedDict[tuple, StepGraph] = OrderedDict()
+_STEP_GRAPH_CAP = 4
+
+
+def _step_graph(key: tuple, step, ref: Tensor, cur: Tensor) -> StepGraph:
+    """The graph of ``step`` on frames like ``ref`` and ``cur``: captured
+    now, the least recently used one beyond the cap dropped once the
+    capture's synchronize has finished its replays."""
+    with torch.cuda.device(cur.device):
+        graph = _STEP_GRAPHS[key] = StepGraph(step, ref, cur)
+    while len(_STEP_GRAPHS) > _STEP_GRAPH_CAP:
+        _STEP_GRAPHS.popitem(last=False)
+    count("farneback.graph_captures")
+    return graph
 
 
 def farneback_register_sequence(
@@ -268,20 +296,41 @@ def farneback_register_sequence(
     convention; the reference builds its map as ``x - flow``, which doubles
     the residual misalignment: ``warp_sign=-1`` reproduces it.
 
-    Each step is a span ``farneback.chain_flow`` (its flow, then a span
-    ``farneback.smooth_warp``).
+    On a CUDA stack, unless the current stream is being captured, each step
+    is one CUDA graph (:class:`~pdx_torch.utils.graphs.StepGraph`) replayed
+    from the host: the first step of a frame shape, dtype, device and
+    settings not seen lately runs eagerly and is then captured (count
+    ``farneback.graph_captures``), and every later step is a replay (count
+    ``farneback.graph_replays``), bitwise the eager step. On the CPU every
+    step runs eagerly.
+
+    Each step is a span ``farneback.chain_flow``. An eager step holds its
+    flow's spans and counts and a span ``farneback.smooth_warp``; a replay
+    runs no host code between its kernels, so it opens none of them, and
+    counts the ``farneback.flows`` and ``farneback.iterations`` of its
+    capture.
     """
     flow_kwargs.setdefault("refine", 1)
     flow_ds = _chain_flow_ds(flow_kwargs.pop("flow_ds", None), U.shape[-2], U.shape[-1], U.device)
-    f32 = torch.float32 if U.dtype == torch.float64 else U.dtype
+    step = functools.partial(_chain_step, flow_ds=flow_ds, warp_sign=warp_sign, ksize=flow_smooth_ksize,
+                             sigma=flow_smooth_sigma, kw=flow_kwargs)
+    graphed = U.is_cuda and not torch.cuda.is_current_stream_capturing()
+    key = (tuple(U.shape[-2:]), U.dtype, U.device, flow_ds, float(warp_sign), int(flow_smooth_ksize),
+           float(flow_smooth_sigma), tuple(sorted(flow_kwargs.items())))
+    graph = _STEP_GRAPHS.get(key) if graphed else None
+    if graph is not None:
+        _STEP_GRAPHS.move_to_end(key)
     out = torch.empty_like(U)
     out[0] = U[0]
     for i in range(1, U.shape[0]):
         with span("farneback.chain_flow"):
-            fx, fy = _chain_step_flow(out[i - 1], U[i], f32=f32, flow_ds=flow_ds, kw=flow_kwargs)
-            with span("farneback.smooth_warp"):
-                fs = _blur(torch.stack([fx, fy]), flow_smooth_ksize, flow_smooth_sigma, True).to(U.dtype)
-                out[i] = warp_flow(U[i], warp_sign * fs[0], warp_sign * fs[1])
+            if graph is not None:
+                out[i].copy_(graph.replay(out[i - 1], U[i]))
+                count("farneback.graph_replays")
+            else:
+                out[i] = step(out[i - 1], U[i])
+                if graphed:
+                    graph = _step_graph(key, step, out[i - 1], U[i])
     return out
 
 

@@ -116,7 +116,12 @@ def span(name: str):
 
 def count(name: str, n: int = 1, into: Span | None = None) -> None:
     """Add ``n`` to the process-wide total ``name``, and to ``into`` or,
-    while recording, to the innermost open span of this thread."""
+    while recording, to the innermost open span of this thread. Inside
+    :func:`held_counts` the count goes to the holder alone."""
+    held = getattr(_local, "held", None)
+    if held is not None:
+        held[name] += n
+        return
     with _lock:
         _totals[name] += n
     if into is None and recording():
@@ -124,6 +129,18 @@ def count(name: str, n: int = 1, into: Span | None = None) -> None:
         into = stack[-1] if stack else None
     if into is not None:
         into.counts[name] = into.counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def held_counts():
+    """Yields a Counter that takes this thread's counts while the context is
+    open, in place of the totals and the spans: the counts of work that is
+    recorded and not run (a CUDA graph's capture), to be counted when it runs."""
+    held, _local.held = getattr(_local, "held", None), collections.Counter()
+    try:
+        yield _local.held
+    finally:
+        _local.held = held
 
 
 def total(name: str) -> int:

@@ -28,6 +28,7 @@ from scipy.ndimage import gaussian_filter, shift as ndshift
 from pdx.register import farneback as jfb
 from pdx_torch.interop import flows_from_numpy
 from pdx_torch.register import farneback as tfb
+from pdx_torch.utils.profiling import total
 
 FRAME_TOL = 5e-6
 FLOW_TOL = 1e-9
@@ -132,6 +133,71 @@ def test_reference_compat_sign(jitter):
     fixed = tfb.farneback_register_sequence(_t(jitter), flow_ds=1)
     resid = lambda out: float(torch.sqrt(torch.mean((out[1:] - out[:1]) ** 2)))  # noqa: E731
     assert resid(fixed) < resid(got)
+
+
+GRAPH_COUNTS = ("farneback.graph_captures", "farneback.graph_replays", "farneback.flows", "farneback.iterations")
+
+
+def _totals():
+    return np.array([total(n) for n in GRAPH_COUNTS])
+
+
+def _eager_chain(U, **step):
+    """The chain as a loop of eager steps."""
+    out = torch.empty_like(U)
+    out[0] = U[0]
+    for i in range(1, U.shape[0]):
+        out[i] = tfb._chain_step(out[i - 1], U[i], **step)
+    return out
+
+
+def test_chain_stays_eager_on_the_cpu(jitter):
+    """On the CPU no step is captured or replayed: the chain is the loop of
+    eager steps, bit for bit, and counts its flows."""
+    U = _t(jitter[:4, :64, :64])
+    t0 = _totals()
+    got = tfb.farneback_register_sequence(U, flow_ds=1)
+    t1 = _totals()
+    assert list(t1[:3] - t0[:3]) == [0, 0, 3]
+    want = _eager_chain(U, flow_ds=1, warp_sign=1.0, ksize=11, sigma=2.0, kw={"refine": 1})
+    assert list(_totals()[2:] - t1[2:]) == list(t1[2:] - t0[2:])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _jittered_stack(T, H, W, seed):
+    rng = np.random.default_rng(seed)
+    f = gaussian_filter(rng.normal(size=(H, W)), 6, mode="wrap")
+    f = (f - f.min()) / (f.max() - f.min())
+    return np.stack([f] + [ndshift(f, rng.uniform(-1.5, 1.5, 2), mode="reflect") for _ in range(T - 1)])
+
+
+@pytest.mark.gpu
+def test_chain_graph_replays_the_eager_step_bitwise_on_the_card():
+    """On the card the first step of a new frame shape or warp sign runs
+    eagerly and is captured, the others replay the graph: bitwise the loop
+    of eager steps, with the same flow and iteration counts; a second stack
+    of the same shape replays with no new capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tfb._STEP_GRAPHS.clear()
+
+    def run(seed, sign, H=128, W=160):
+        U = torch.from_numpy(_jittered_stack(6, H, W, seed)).cuda()
+        t0 = _totals()
+        got = tfb.farneback_register_sequence(U, flow_ds=2, warp_sign=sign)
+        t1 = _totals()
+        want = _eager_chain(U, flow_ds=2, warp_sign=sign, ksize=11, sigma=2.0, kw={"refine": 1})
+        t2 = _totals()
+        gap = float((got - want).abs().max())
+        assert torch.equal(got, want), (seed, sign, H, W, gap)
+        assert list(t1[2:] - t0[2:]) == list(t2[2:] - t1[2:]) and t1[2] - t0[2] == 5
+        return list(t1[:2] - t0[:2])  # (captures, replays)
+
+    for sign in (1.0, -1.0):
+        assert run(11, sign) == [1, 4]  # a new key: the first step eager, then captured
+        assert run(12, sign) == [0, 5]  # a second stack of that shape replays every step
+    assert run(13, 1.0, W=192) == [1, 4]  # another shape captures once more
+    assert len(tfb._STEP_GRAPHS) == 3
 
 
 @pytest.mark.parametrize("to_first", [False, True])

@@ -71,6 +71,26 @@ def test_counts_land_on_the_innermost_span_and_the_total():
     assert total("tracing_test.items") == before + 11
 
 
+def test_held_counts_reach_neither_the_totals_nor_the_spans():
+    timer = StageTimer()
+    before = total("tracing_test.held")
+
+    def work():
+        with timer.stage("outer") as outer:
+            with profiling.held_counts() as held:
+                count("tracing_test.held", 4)
+                with profiling.held_counts() as inner:  # nested: the innermost holder takes them
+                    count("tracing_test.held")
+                count("tracing_test.held", 2)
+            count("tracing_test.held", 3)
+        return outer, held, inner
+
+    (outer, held, inner), _ = _window(work)
+    assert held == {"tracing_test.held": 6} and inner == {"tracing_test.held": 1}
+    assert outer.counts == {"tracing_test.held": 3}
+    assert total("tracing_test.held") == before + 3
+
+
 def test_nothing_is_recorded_outside_a_timer_and_a_profiler():
     assert not recording()
 

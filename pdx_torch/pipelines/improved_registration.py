@@ -37,7 +37,7 @@ from pdx_torch.register.dis import dis_flow
 from pdx_torch.register.farneback import _blur, farneback_flow, farneback_register_sequence
 from pdx_torch.register.quality import improvement, mean_flow_magnitude
 from pdx_torch.solve.stridge import stridge_from_stats, stridge_qr
-from pdx_torch.utils.profiling import null_stage
+from pdx_torch.utils.profiling import null_stage, span
 
 TERM_NAMES = [
     "1", "u", "u_x", "u_y", "u_xx", "u_yy", "lap(u)", "u^2", "u*u_x", "u*u_y", "u^3", "u_x^2", "u_y^2",
@@ -119,6 +119,66 @@ def _equation(coeffs: np.ndarray) -> str:
     return "u_t = " + " ".join(parts) if parts else "u_t = 0"
 
 
+def preprocess(cfg: ImprovedRegistrationConfig, U_raw: np.ndarray, device: torch.device) -> Tensor:
+    """``U_raw`` (T, H, W) on ``device`` in ``cfg.dtype``, Gaussian-denoised
+    (sigma ``cfg.denoise_sigma``) and min-max normalised to [0, 1]."""
+    U = gaussian_filter_reflect(device_stack(U_raw, resolve_dtype(cfg.dtype), device=device), cfg.denoise_sigma)
+    return (U - U.min()) / (U.max() - U.min())
+
+
+def _warp_sign(cfg: ImprovedRegistrationConfig) -> float:
+    return -1.0 if cfg.reference_compat_warp else 1.0
+
+
+def register_farneback(cfg: ImprovedRegistrationConfig, U: Tensor) -> Tensor:
+    """The Farnebäck warp-to-previous chain of the preprocessed stack, in a
+    span ``register`` as the patch pipeline's chain."""
+    with span("register"):
+        return farneback_register_sequence(U, warp_sign=_warp_sign(cfg))
+
+
+def register_dis(cfg: ImprovedRegistrationConfig, U: Tensor) -> Tensor:
+    """The DIS warp-to-previous chain of the preprocessed stack."""
+    return dis_register_sequence(U, warp_sign=_warp_sign(cfg))
+
+
+def registration_quality(U: Tensor, U_fb: Tensor, U_dis: Tensor, *, stage=null_stage):
+    """The mean residual flow of the unregistered stack and of each
+    registration (three sweeps, one host read) and the method whose
+    improvement is larger, Farnebäck on a tie: (Farnebäck metrics, DIS
+    metrics, "Farneback" or "DIS"). ``stage``: a timer's ``stage``, entered
+    once a sweep (``quality_before``, ``quality_farneback``, ``quality_dis``,
+    the last with the read)."""
+    with stage("quality_before"):
+        before = mean_flow_magnitude(U)
+    with stage("quality_farneback"):
+        q_fb = improvement(before, mean_flow_magnitude(U_fb))
+    with stage("quality_dis"):
+        q_dis = improvement(before, mean_flow_magnitude(U_dis))
+        keys = list(q_fb)
+        host = torch.stack([q_fb[k] for k in keys] + [q_dis[k] for k in keys]).tolist()  # one read
+    m_fb = dict(zip(keys, host[:3]))
+    m_dis = dict(zip(keys, host[3:]))
+    method = "DIS" if m_dis["improvement_pct"] > m_fb["improvement_pct"] else "Farneback"
+    return m_fb, m_dis, method
+
+
+def fit_registered(cfg: ImprovedRegistrationConfig, U_reg: Tensor) -> dict[str, Any]:
+    """Savitzky-Golay along time, crop and subsample, the sliced 13-term
+    library, STRidge and R^2 of the registered stack, with one host read:
+    ``coeffs`` (13,), ``r2``, ``working_shape`` and ``fields`` (u_t, lap,
+    u_x, u_y, y, y_pred on the device, which SLIDE3-4 draw)."""
+    U_smooth = savgol_time(U_reg, cfg.savgol_window, cfg.savgol_poly)
+    s, sub = cfg.skip, cfg.subsample
+    U_crop = U_smooth[:, s:-s:sub, s:-s:sub]
+    X, y, u_t, lap, u_x, u_y, working_shape = sliced_library(cfg, U_crop)
+    coeffs_t = fit(cfg, X, y)
+    y_pred = X @ coeffs_t
+    host = torch.cat([coeffs_t, r2_score(y, y_pred)[None]]).cpu().numpy()  # one read
+    return {"coeffs": host[:-1], "r2": float(host[-1]), "working_shape": working_shape,
+            "fields": (u_t, lap, u_x, u_y, y, y_pred)}
+
+
 def run(
     cfg: ImprovedRegistrationConfig,
     U_raw: np.ndarray | None = None,
@@ -128,47 +188,26 @@ def run(
     """The registration study on ``U_raw`` (a (T, H, W) stack), or on the
     first ``cfg.max_images`` TIFFs of ``cfg.data_dir``. Runs on the CUDA card
     unless ``device="cpu"``; raises without a card otherwise. ``timer`` (a
-    :class:`pdx_torch.utils.profiling.StageTimer`) times the stages."""
+    :class:`pdx_torch.utils.profiling.StageTimer`) times the stages.
+
+    The stages in turn: :func:`preprocess`, :func:`register_farneback`,
+    :func:`register_dis`, :func:`registration_quality`, :func:`fit_registered`."""
     dev = resolve_device(device)
-    dtype = resolve_dtype(cfg.dtype)
     st = timer.stage if timer is not None else null_stage
     if U_raw is None:
         with st("load_images"):
             U_raw = load_images(cfg.data_dir, max_images=cfg.max_images)
     with st("denoise_normalize"):
-        U = gaussian_filter_reflect(device_stack(U_raw, dtype, device=dev), cfg.denoise_sigma)
-        U = (U - U.min()) / (U.max() - U.min())
-
-    sign = -1.0 if cfg.reference_compat_warp else 1.0
+        U = preprocess(cfg, U_raw, dev)
     with st("farneback_chain"):
-        U_fb = farneback_register_sequence(U, warp_sign=sign)
+        U_fb = register_farneback(cfg, U)
     with st("dis_chain"):
-        U_dis = dis_register_sequence(U, warp_sign=sign)
-    with st("quality_before"):
-        before = mean_flow_magnitude(U)
-    with st("quality_farneback"):
-        q_fb = improvement(before, mean_flow_magnitude(U_fb))
-    with st("quality_dis"):
-        q_dis = improvement(before, mean_flow_magnitude(U_dis))
-        keys = list(q_fb)
-        host = torch.stack([q_fb[k] for k in keys] + [q_dis[k] for k in keys]).tolist()  # one read
-    m_fb = dict(zip(keys, host[:3]))
-    m_dis = dict(zip(keys, host[3:]))
-
-    if m_dis["improvement_pct"] > m_fb["improvement_pct"]:
-        U_reg, method = U_dis, "DIS"
-    else:
-        U_reg, method = U_fb, "Farneback"
-
+        U_dis = register_dis(cfg, U)
+    m_fb, m_dis, method = registration_quality(U, U_fb, U_dis, stage=st)
+    U_reg = U_dis if method == "DIS" else U_fb
     with st("fit"):
-        U_smooth = savgol_time(U_reg, cfg.savgol_window, cfg.savgol_poly)
-        s, sub = cfg.skip, cfg.subsample
-        U_crop = U_smooth[:, s:-s:sub, s:-s:sub]
-        X, y, u_t, lap, u_x, u_y, (mt, mh, mw) = sliced_library(cfg, U_crop)
-        coeffs_t = fit(cfg, X, y)
-        y_pred = X @ coeffs_t
-        host = torch.cat([coeffs_t, r2_score(y, y_pred)[None]]).cpu().numpy()  # one read
-    coeffs, r2 = host[:-1], float(host[-1])
+        res = fit_registered(cfg, U_reg)
+    coeffs, r2 = res["coeffs"], res["r2"]
 
     out = {
         "config": dataclasses.asdict(cfg),
@@ -179,7 +218,7 @@ def run(
         "coeffs": coeffs,
         "r2": r2,
         "equation": _equation(coeffs),
-        "working_shape": (mt, mh, mw),
+        "working_shape": res["working_shape"],
     }
     if cfg.write_artifacts:
         out_dir = Path(cfg.output_dir)
@@ -188,9 +227,9 @@ def run(
             # SLIDE1-4 (pde_discovery_improved_registration.py:254,347,532,592):
             # the flows and host reads run outside the guard; only the
             # drawing may be skipped, as the reference's figure guard does
-            data = slide_data(U, U_fb, U_dis, U_reg, u_t, lap, u_x, u_y, y, y_pred)
+            data = slide_data(U, U_fb, U_dis, U_reg, *res["fields"])
             try:
-                _render_slides(out_dir, data, m_fb, m_dis, method, coeffs, r2, (mt, mh, mw))
+                _render_slides(out_dir, data, m_fb, m_dis, method, coeffs, r2, res["working_shape"])
             except Exception as e:  # pragma: no cover - parity with the reference guard
                 print(f"   (skipped slide rendering: {e})")
     if timer is not None:

@@ -27,6 +27,7 @@ import torch
 from torch import Tensor
 
 from pdx_torch.ops.interp import bilinear_sample_reflect, resize_bilinear
+from pdx_torch.utils.profiling import count, span
 
 
 def _patch_grid_coords(H: int, W: int, psize: int, stride: int) -> np.ndarray:
@@ -121,26 +122,35 @@ def dis_flow(
 
     The defaults approximate cv2.DISOpticalFlow PRESET_MEDIUM (8x8 patches,
     stride 4 at the finest scale).
-    """
-    H, W = img1.shape[-2], img1.shape[-1]
-    shapes = [(H, W)]
-    for _ in range(1, levels):
-        h2, w2 = shapes[-1][0] // 2, shapes[-1][1] // 2
-        if min(h2, w2) < min_size:
-            break
-        shapes.append((h2, w2))
 
-    fx = torch.zeros(shapes[-1], dtype=img1.dtype, device=img1.device)
-    fy = torch.zeros(shapes[-1], dtype=img1.dtype, device=img1.device)
-    for shp in reversed(shapes):
-        i1 = resize_bilinear(img1, shp[0], shp[1]) if shp != (H, W) else img1
-        i2 = resize_bilinear(img2, shp[0], shp[1]) if shp != (H, W) else img2
-        if (fx.shape[-2], fx.shape[-1]) != shp:
-            sr = shp[0] / fx.shape[-2]
-            sc = shp[1] / fx.shape[-1]
-            fx = resize_bilinear(fx, shp[0], shp[1]) * sr
-            fy = resize_bilinear(fy, shp[0], shp[1]) * sc
-        ps = min(patch_size, min(shp) // 2)
-        st = max(1, min(stride, ps // 2))
-        fx, fy = _level_flow(i1, i2, fx, fy, ps, st, iterations)
-    return fx, fy
+    The call is a span ``dis.flow`` that counts ``dis.flows``; each pyramid
+    level a span ``dis.level`` inside it that counts ``dis.levels`` and its
+    Lucas-Kanade ``dis.iterations``.
+    """
+    with span("dis.flow"):
+        count("dis.flows")
+        H, W = img1.shape[-2], img1.shape[-1]
+        shapes = [(H, W)]
+        for _ in range(1, levels):
+            h2, w2 = shapes[-1][0] // 2, shapes[-1][1] // 2
+            if min(h2, w2) < min_size:
+                break
+            shapes.append((h2, w2))
+
+        fx = torch.zeros(shapes[-1], dtype=img1.dtype, device=img1.device)
+        fy = torch.zeros(shapes[-1], dtype=img1.dtype, device=img1.device)
+        for shp in reversed(shapes):
+            with span("dis.level"):
+                count("dis.levels")
+                count("dis.iterations", iterations)
+                i1 = resize_bilinear(img1, shp[0], shp[1]) if shp != (H, W) else img1
+                i2 = resize_bilinear(img2, shp[0], shp[1]) if shp != (H, W) else img2
+                if (fx.shape[-2], fx.shape[-1]) != shp:
+                    sr = shp[0] / fx.shape[-2]
+                    sc = shp[1] / fx.shape[-1]
+                    fx = resize_bilinear(fx, shp[0], shp[1]) * sr
+                    fy = resize_bilinear(fy, shp[0], shp[1]) * sc
+                ps = min(patch_size, min(shp) // 2)
+                st = max(1, min(stride, ps // 2))
+                fx, fy = _level_flow(i1, i2, fx, fy, ps, st, iterations)
+        return fx, fy

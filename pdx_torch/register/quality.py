@@ -14,6 +14,7 @@ import torch
 from torch import Tensor
 
 from pdx_torch.register.farneback import batched_pair_flows
+from pdx_torch.utils.profiling import count, span
 
 
 def mean_flow_magnitude(U: Tensor, **flow_kwargs) -> Tensor:
@@ -22,11 +23,17 @@ def mean_flow_magnitude(U: Tensor, **flow_kwargs) -> Tensor:
     The reference's metric uses light Farnebäck parameters (pyr 0.5 /
     levels 3 / win 15 / iters 3 / poly 5 / sigma 1.2, box window);
     ``refine`` stays :func:`farneback_flow`'s default.
+
+    The sweep is a span ``quality.sweep`` that counts ``quality.sweeps`` and
+    its pairs, ``quality.pair_flows``.
     """
     kwargs = dict(pyr_scale=0.5, levels=3, winsize=15, iterations=3, poly_n=5, poly_sigma=1.2, gaussian_win=False)
     kwargs.update(flow_kwargs)
-    fx, fy = batched_pair_flows(U[:-1], U[1:], flow_static=kwargs)
-    return torch.mean(torch.sqrt(fx**2 + fy**2))
+    with span("quality.sweep"):
+        count("quality.sweeps")
+        count("quality.pair_flows", max(U.shape[0] - 1, 0))
+        fx, fy = batched_pair_flows(U[:-1], U[1:], flow_static=kwargs)
+        return torch.mean(torch.sqrt(fx**2 + fy**2))
 
 
 def improvement(before: Tensor, after: Tensor) -> dict[str, Tensor]:

@@ -29,7 +29,20 @@ Phases, each of which exits non-zero on failure:
    faster than K2 with 5 terms and K3 than K4 (bare launches; the
    wrappers' times are printed beside them); each kernel's registers
    a thread and resident CTAs per SM at the main shape come from a C query
-   (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+   (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+   Then the Farnebäck flow's four kernels (``ops/kernels/flow_windows``:
+   the expansion, the warped expansion, the update, the window blur)
+   against their plain PyTorch versions at the main paths' shapes: the
+   quality sweep's chunk (6 x 1024 x 1280 float64, poly_n 5, box window
+   15), transport's pairs (50 x 256 x 320 float64), the patch and study
+   chains' flow grids (one float32 pair of 256 x 320 and of 512 x 640,
+   poly_n 7, Gaussian window 25) and the 11-tap flow smoothing (the DIS
+   chain's 2 x 1024 x 1280 float64, the chains' float32 2 x 512 x 640 and
+   2 x 1024 x 1280), each within 1e-12 (float64) or 1e-5 (float32) of the
+   plain result's largest magnitude, timed beside the plain version and
+   its byte bound (each plane read or written once at 3.35 TB/s); their
+   launches are counted in the timed runs of phases 5, 7 and 9, each of
+   which must launch them;
 3. the KS-2D benchmark's main paths, ``pipelines.ks2d_bench.run`` at the
    full default size (100x100, 2000 Euler steps, float64): solver auto,
    pallas (K1), pallas blockwise (K3), pallas rich (K2), pallas blockwise
@@ -67,10 +80,10 @@ Phases, each of which exits non-zero on failure:
    held-out evaluation; host clock ending in a synchronize, median of 3),
    the residual motion (RMS of frame-to-previous differences) before and
    after registration. Gates: patches fit, finite coefficients and
-   metrics, residual motion lowered by registration, no kernel launched
-   (the path has none). One run writes the artifacts to a temporary
-   directory and checks the CSV header, the report's "Aggregated PDE:"
-   line and the JSON summary. Then the card against the CPU on 12 x 128 x
+   metrics, residual motion lowered by registration, none of K1-K4
+   launched, every flow kernel launched (the default configuration). One
+   run writes the artifacts to a temporary directory and checks the CSV
+   header, the report's "Aggregated PDE:" line and the JSON summary. Then the card against the CPU on 12 x 128 x
    128 frames: registration off (coefficients within 1e-10 of max|coef|)
    and on (1e-5 of max|coef|, the same kept support; registered frames
    within 5e-6), and the chain with ``flow_ds=2`` passed to both on
@@ -85,7 +98,7 @@ Phases, each of which exits non-zero on failure:
    ``pdx``'s schema (the figures are skipped without matplotlib, as ``pdx``
    skips them); FIG4's rollouts on the card against the CPU (1e-9). Gates:
    six (seven) results, every R2 and k-step metric finite, Models 1 and 2
-   equal, the best model one of the family, no kernel launched. Then the
+   equal, the best model one of the family, none of K1-K4 launched. Then the
    card against the CPU on 12 x 128 x 128 frames: registration off (1e-9 of
    max|coef|) and on (1e-5, the same supports), the same selected models;
 7. ``[transport]``: ``pipelines.transport.run`` on the uint16 stack,
@@ -93,8 +106,8 @@ Phases, each of which exits non-zero on failure:
    batch, a 13-term library of 50 x 256 x 320 rows, FISTA over three
    alphas): warm wall (median of 3), ``[stage]`` lines, FISTA's iterations
    and host syncs at ``pdx``'s alphas and at alphas that keep terms
-   active; gates: finite coefficients and R2 for every alpha, no kernel
-   launched. Then the card against the CPU on 8 x 220 x 220 frames (2
+   active; gates: finite coefficients and R2 for every alpha, none of
+   K1-K4 launched, the flow's expansions and update launched. Then the card against the CPU on 8 x 220 x 220 frames (2
    pyramid levels, as ``pdx``'s test): flows within 1e-9 px, coefficients
    within 1e-6 of max|coef|, R2 within 1e-9;
 8. ``[patch_sindy]``: ``pipelines.patch_sindy.run`` on the same stack read
@@ -104,8 +117,8 @@ Phases, each of which exits non-zero on failure:
    64 x 64), ECC (30 patches as one batch, 50 host steps) and frame scope
    (one warm run each), with ``[stage]`` lines from the port's
    ``StageTimer``, and the ECC iterations a step; gates: 30 patches, finite
-   coefficients, 0 < average quality <= 1 for the registered schedules, no
-   kernel launched. Then the card against the CPU on 6 x 96 x 96 frames,
+   coefficients, 0 < average quality <= 1 for the registered schedules,
+   none of K1-K4 launched. Then the card against the CPU on 6 x 96 x 96 frames,
    every schedule, at the CPU tests' limits, and the batched ECC's
    iterations;
 9. ``[improved_registration]``: ``pipelines.improved_registration.run`` on
@@ -113,10 +126,11 @@ Phases, each of which exits non-zero on failure:
    three quality sweeps of 50 float64 pairs at 1024 x 1280, a 49 x 80 x 101
    working stack): warm wall (median of 3 if a run takes under 10 s, else
    one run) and ``[stage]`` lines; gates: finite coefficients, R2 and
-   quality metrics, the working shape, a selected method, no kernel
-   launched. Then the card against the CPU on 6 x 96 x 96 frames (the same
-   method, flow magnitudes within 1e-6, coefficients within 1e-5 of
-   max|coef|), and ``dis_flow`` twice on the card, bitwise equal;
+   quality metrics, the working shape, a selected method, none of K1-K4
+   launched, every flow kernel launched. Then the card against the CPU on
+   6 x 96 x 96 frames (the same method, flow magnitudes within 1e-6,
+   coefficients within 1e-5 of max|coef|), and ``dis_flow`` twice on the
+   card, bitwise equal;
 10. ``[comprehensive]``: ``pipelines.comprehensive.run`` at its default
    size (21 methods x 8 regimes, 200 frames of 64 x 64 float64 from 10,000
    Euler steps), writing ``benchmark_results.json`` to a temporary
@@ -159,6 +173,7 @@ The second-to-last line is a JSON summary of the kernels; the last line is
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -239,7 +254,11 @@ def _time_ms(fn, reps: int = 15) -> float:
 GIB = 2**30
 # Device memory each phase reserves at its peak, in GiB, as its [memory] line printed it on the H100
 # (rounded up); before the phase, that and 1 GiB for the CUDA context and a margin must be free.
-PHASE_PEAK_GIB = {"the kernels": 4.7, "the KS-2D paths": 2.9, "the KS-2D card against the CPU": 0.5,
+PHASE_PEAK_GIB = {"the kernels": 4.7,
+                  # the plain update's 15-fold windows of 5 fields of the sweep chunk (6 x 1024 x 1280 float64),
+                  # 4.7 GB, beside its inputs: the phase reserved 9.143 GiB
+                  "the flow kernels": 9.2,
+                  "the KS-2D paths": 2.9, "the KS-2D card against the CPU": 0.5,
                   "[patch]": 3.8, "[analyze]": 4.3, "[transport]": 7.7, "[patch_sindy]": 8.3,
                   "[improved_registration]": 18.4,
                   # reckoned 1-3 and < 0.1 GiB before the first run (the batched ridge family's Fourier fields,
@@ -356,6 +375,92 @@ def _bound(
     t_bytes = (2 * n * itemsize + n_stats * 8) / HBM_BYTES_PER_S
     t_ops = flops / FP64_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# The Farnebäck flow's windowed kernels (csrc/farneback.cu): wrapper -> (its launch count, the planes of one
+# pixel it reads and writes once each, which bound its bytes).
+FLOW_KERNELS = {"poly_expansion": ("poly_expansion.launches", 6),
+                "warped_poly_expansion": ("warped_poly_expansion.launches", 8),
+                "flow_update": ("flow_update.launches", 14), "window_blur": ("window_blur.launches", 2)}
+FLOW_COUNTERS = {n: c for n, (c, _) in FLOW_KERNELS.items()}
+# each kernel's gap to its plain version, of the plain result's largest magnitude: the sums run in another order
+# (~K ulp a pass), so float64 keeps ~4 digits of room over ~1e-16 and float32 ~2 over ~1e-7
+FLOW_TOL = {"float64": 1e-12, "float32": 1e-5}
+# the main paths' shapes: (label, planes (B, H, W), dtype, poly_n, poly_sigma, window taps, Gaussian window)
+FLOW_SHAPES = (("quality sweep chunk", (6, 1024, 1280), "float64", 5, 1.2, 15, False),
+               ("transport pairs", (50, 256, 320), "float64", 5, 1.2, 15, False),
+               ("patch chain flow", (1, 256, 320), "float32", 7, 1.5, 25, True),
+               ("study chain flow", (1, 512, 640), "float32", 7, 1.5, 25, True))
+# the 11-tap sigma 2 flow smoothing: the DIS chain's (float64 at full size) and the chains' (their float32 flows
+# at the frames' size)
+BLUR_SHAPES = (("DIS chain smoothing", (2, 1024, 1280), "float64"),
+               ("patch chain smoothing", (2, 512, 640), "float32"),
+               ("study chain smoothing", (2, 1024, 1280), "float32"))
+
+
+def _flow_kernels(dev, card: str) -> dict:
+    """Each of the Farnebäck flow's four kernels against its plain PyTorch
+    version on the card at the main paths' shapes, timed beside it and
+    beside its byte bound; returns {wrapper: the kernels line's entry},
+    timed at its first shape."""
+    import torch
+
+    from pdx_torch.register import farneback as fb
+
+    def gap(got, want):
+        return float((got - want).abs().max()), float((got - want).abs().max() / want.abs().max())
+
+    def warped_plain(img, flow, n, sigma):
+        return fb._poly_exp_plain(fb.warp_flow(img, flow[0], flow[1]), n, sigma)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = {name: {"max_abs_err": 0.0} for name in FLOW_KERNELS}
+
+    def check(name, label, shape, dtype, kernel, plain, tol):
+        (err, rel), px = gap(kernel(), plain()), math.prod(shape)
+        if not rel < tol:
+            raise AssertionError(f"{name} {label} {shape} {dtype}: {rel:.3e} of the plain result's largest "
+                                 f"magnitude from it (limit {tol:g})")
+        ms, plain_ms = _time_ms(kernel), _time_ms(plain, reps=5)
+        bound_ms = FLOW_KERNELS[name][1] * (8 if dtype == "float64" else 4) * px / HBM_BYTES_PER_S * 1e3
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if "ms" not in r:
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes")
+        print(f"[kernel] {name} {label} {shape} {dtype}: max|err| {err:.3e} ({rel:.1e} of the largest magnitude, "
+              f"limit {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes; kernel "
+              f"at {100 * bound_ms / ms:.1f}% of it) ({card})")
+
+    for label, shape, dtype, pn, ps, win, gauss in FLOW_SHAPES:
+        dt, n, tol = getattr(torch, dtype), pn // 2, FLOW_TOL[dtype]
+        f1 = torch.rand(shape, dtype=dt, device=dev, generator=g)
+        f2 = torch.roll(f1, (1, 2), (-2, -1)) + 0.01 * torch.rand(shape, dtype=dt, device=dev, generator=g)
+        flow = torch.randn((2,) + shape, dtype=dt, device=dev, generator=g)
+        e1, e2 = fb._poly_exp_plain(f1, n, ps), fb._poly_exp_plain(f2, n, ps)
+        check("poly_expansion", label, shape, dtype, lambda: fb._poly_exp(f1, n, ps),
+              lambda: fb._poly_exp_plain(f1, n, ps)[:5], tol)
+        check("warped_poly_expansion", label, shape, dtype, lambda: fb._warped_poly_exp(f2, flow, n, ps),
+              lambda: warped_plain(f2, flow, n, ps)[:5], tol)
+        check("flow_update", label, shape, dtype, lambda: fb._flow_iteration(e1, e2, flow, win, gauss),
+              lambda: fb._flow_iteration_plain(e1, e2, flow, win, gauss), tol)
+        del f1, f2, flow, e1, e2
+        torch.cuda.empty_cache()
+    for label, shape, dtype in BLUR_SHAPES:
+        f = torch.randn(shape, dtype=getattr(torch, dtype), device=dev, generator=g)
+        check("window_blur", label, shape, dtype, lambda: fb._blur(f, 11, 2.0, True),
+              lambda: fb._blur_plain(f, 11, 2.0, True), FLOW_TOL[dtype])
+        del f
+    return results
+
+
+def _tally_flows(label: str, base: dict, tally, needs: tuple[str, ...]) -> None:
+    """Add the flow kernels' launches since ``base`` to ``tally``; raise if
+    one of ``needs`` was not launched (a main path's flow left plain)."""
+    moved = _launches_since(FLOW_COUNTERS, base)
+    missing = [n for n in needs if moved[n] < 1]
+    if missing:
+        raise AssertionError(f"{label}: the flow kernels {missing} were not launched ({moved})")
+    tally.update(moved)
 
 
 def _print_occupancy(lib, kg, kb, dev, card: str) -> None:
@@ -604,8 +709,9 @@ PATCH_SMALL = dict(data_dir="unused", max_images=12, skip=4, subsample=2, patch=
                    samples_per_patch=60, rt=1, rs=2, deg=2, write_artifacts=False)
 
 
-def _patch_run(label: str, U, cfg, dev, card: str, counters: dict) -> dict:
-    """One stack through the patch ensemble: warm wall, stage lines, gates."""
+def _patch_run(label: str, U, cfg, dev, card: str, counters: dict, tally=None) -> dict:
+    """One stack through the patch ensemble: warm wall, stage lines, gates;
+    the timed runs' flow-kernel launches go to ``tally`` if given."""
     import numpy as np
     import torch
 
@@ -614,7 +720,7 @@ def _patch_run(label: str, U, cfg, dev, card: str, counters: dict) -> dict:
     U.setflags(write=False)  # a read-only stack is shipped to the card once (io_host.images.device_stack)
     pd.run(cfg, U_raw=U, device=dev)  # warm-up
     walls = []
-    base = _launch_totals(counters)
+    base, flow_base = _launch_totals(counters), _launch_totals(FLOW_COUNTERS)
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -623,7 +729,9 @@ def _patch_run(label: str, U, cfg, dev, card: str, counters: dict) -> dict:
         walls.append(time.perf_counter() - t0)
     moved = _launches_since(counters, base)
     if any(moved.values()):
-        raise AssertionError(f"{label}: the patch ensemble launches no kernel, yet {moved}")
+        raise AssertionError(f"{label}: the patch ensemble launches none of K1-K4, yet {moved}")
+    if tally is not None:
+        _tally_flows(label, flow_base, tally, tuple(FLOW_KERNELS))
     C = np.asarray(out["patch_coeffs"])
     m = out["global_test_metrics"]
     if not (out["n_patches"] > 0 and np.isfinite(C).all() and np.isfinite(out["stats"]["coeffs"]).all()):
@@ -706,10 +814,10 @@ def _patch_card_vs_cpu(dev) -> None:
         print(f"[small] {label}: registered frames on card and CPU apart by {apart:.1e} (limit 5e-6)")
 
 
-def _patch_phase(full, dev, card: str, counters: dict) -> None:
+def _patch_phase(full, dev, card: str, counters: dict, tally) -> None:
     """Phase 5: the real-image patch ensemble at full size (``full``: the
     51 x 1024 x 1280 uint16 stack), its artifacts, and the card against the
-    CPU."""
+    CPU; the default run's flow-kernel launches go to ``tally``."""
     import json as _json
     import tempfile
     from pathlib import Path
@@ -721,7 +829,7 @@ def _patch_phase(full, dev, card: str, counters: dict) -> None:
     from pdx_torch.pipelines.patch_discovery import PatchDiscoveryConfig, run
 
     _patch_run("real dataset's shape 51x1024x1280 uint16, default configuration", full,
-               PatchDiscoveryConfig(write_artifacts=False, data_dir="unused"), dev, card, counters)
+               PatchDiscoveryConfig(write_artifacts=False, data_dir="unused"), dev, card, counters, tally)
     bench = make_stack(T=51, H=512, W=640).astype(np.float64)
     bench_cfg = PatchDiscoveryConfig(write_artifacts=False, data_dir="unused", skip=12, subsample=6)
     _patch_run("bench.py's stack 51x512x640 float64, skip 12, subsample 6", bench, bench_cfg, dev, card, counters)
@@ -744,16 +852,19 @@ def _patch_phase(full, dev, card: str, counters: dict) -> None:
     _patch_card_vs_cpu(dev)
 
 
-def _warm_walls(fn, counters: dict, label: str, reps: int = 3, warm: bool = True) -> tuple[list[float], object]:
+def _warm_walls(fn, counters: dict, label: str, reps: int = 3, warm: bool = True, tally=None,
+                needs: tuple[str, ...] = ()) -> tuple[list[float], object]:
     """One warm-up call of fn (unless ``warm`` is False), then reps calls
     timed on the host clock, each ended by a synchronize, with every launch
     count read before and after them: (walls in s, the last result). Raises
-    if a kernel was launched (the real-image paths have none)."""
+    if one of K1-K4 was launched (the real-image paths run none of them).
+    With ``tally``, adds the flow kernels' launches to it and raises if one
+    of ``needs`` was not launched."""
     import torch
 
     if warm:
         fn()
-    base = _launch_totals(counters)
+    base, flow_base = _launch_totals(counters), _launch_totals(FLOW_COUNTERS)
     walls = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -763,7 +874,9 @@ def _warm_walls(fn, counters: dict, label: str, reps: int = 3, warm: bool = True
         walls.append(time.perf_counter() - t0)
     moved = _launches_since(counters, base)
     if any(moved.values()):
-        raise AssertionError(f"{label}: this path launches no kernel, yet {moved}")
+        raise AssertionError(f"{label}: this path launches none of K1-K4, yet {moved}")
+    if tally is not None:
+        _tally_flows(label, flow_base, tally, needs)
     return walls, out
 
 
@@ -990,11 +1103,12 @@ def _transport_small_card_vs_cpu(dev) -> None:
               f"active terms {active}")
 
 
-def _transport_phase(full, dev, card: str, counters: dict) -> None:
+def _transport_phase(full, dev, card: str, counters: dict, tally) -> None:
     """Phase 7: the transport pipeline at the real dataset's shape (51 x
     1024 x 1280 uint16, default configuration: 50 pair flows at 256 x 320,
     a 13-term library of 50 x 256 x 320 rows, FISTA over three alphas), its
-    stages, FISTA's iterations, and the card against the CPU."""
+    stages, FISTA's iterations, and the card against the CPU; the timed
+    runs' flow-kernel launches go to ``tally``."""
     import numpy as np
     import torch
 
@@ -1004,7 +1118,8 @@ def _transport_phase(full, dev, card: str, counters: dict) -> None:
 
     label = "transport 51x1024x1280 uint16, default configuration"
     cfg = tp.TransportConfig(data_dir="unused", write_artifacts=False)
-    walls, out = _warm_walls(lambda: tp.run(cfg, U_raw=full, device=dev), counters, label)
+    walls, out = _warm_walls(lambda: tp.run(cfg, U_raw=full, device=dev), counters, label, tally=tally,
+                             needs=("poly_expansion", "warped_poly_expansion", "flow_update"))
     for a, r in out["results"].items():
         if not (np.isfinite(r["coefficients"]).all() and math.isfinite(r["r2"])):
             raise AssertionError(f"{label}: alpha {a} gives coefficients {r['coefficients']}, R2 {r['r2']}")
@@ -1202,19 +1317,23 @@ def _ir_small_card_vs_cpu(dev) -> None:
           f"{apart:.1e} of max|flow| (limit 1e-10)")
 
 
-def _improved_registration_phase(full, dev, card: str, counters: dict) -> None:
+def _improved_registration_phase(full, dev, card: str, counters: dict, tally) -> None:
     """Phase 9: improved_registration at the real dataset's shape (``full``:
     the 51 x 1024 x 1280 uint16 stack read as float64), default
-    configuration; then the card against the CPU."""
+    configuration; then the card against the CPU. The timed runs'
+    flow-kernel launches go to ``tally``."""
     import numpy as np
 
     from pdx_torch.pipelines import improved_registration as ir
 
     label = "improved_registration 51x1024x1280 uint16, default configuration"
     cfg = ir.ImprovedRegistrationConfig(data_dir="unused", write_artifacts=False)
-    walls, out = _warm_walls(lambda: ir.run(cfg, U_raw=full, device=dev), counters, label, reps=1)
+    needs = tuple(FLOW_KERNELS)
+    walls, out = _warm_walls(lambda: ir.run(cfg, U_raw=full, device=dev), counters, label, reps=1, tally=tally,
+                             needs=needs)
     if walls[0] < 10.0:  # a median of 3 where a run is short enough
-        walls += _warm_walls(lambda: ir.run(cfg, U_raw=full, device=dev), counters, label, reps=2, warm=False)[0]
+        walls += _warm_walls(lambda: ir.run(cfg, U_raw=full, device=dev), counters, label, reps=2, warm=False,
+                             tally=tally, needs=needs)[0]
     metrics = [out[m][k] for m in ("farneback_metrics", "dis_metrics") for k in out[m]]
     if not (np.isfinite(out["coeffs"]).all() and len(out["coeffs"]) == 13 and math.isfinite(out["r2"])
             and all(math.isfinite(v) for v in metrics)):
@@ -1581,7 +1700,7 @@ def _run_all_phase(data_dir, dev, card: str, counters: dict) -> None:
         raise AssertionError(f"list-resolutions: rc {res.returncode}, {res.stdout!r} {res.stderr[-2000:]}")
     print(f"[run_all] python -m pdx_torch list-resolutions: {res.stdout.strip()!r}, rc 0 ({card})")
     res = subprocess.run(cli + ["doctor"], cwd=root, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0 or "kernels: 4 of 4 loaded" not in res.stdout or f"card 0: {card}" not in res.stdout:
+    if res.returncode != 0 or "kernels: 5 of 5 loaded" not in res.stdout or f"card 0: {card}" not in res.stdout:
         raise AssertionError(f"doctor: rc {res.returncode}\n{res.stdout}\n{res.stderr[-2000:]}")
     print("[run_all] python -m pdx_torch doctor: rc 0 | " + " | ".join(res.stdout.strip().splitlines()) + f" ({card})")
 
@@ -1603,7 +1722,7 @@ def _run_all_phase(data_dir, dev, card: str, counters: dict) -> None:
             images.flush_stack_cache_writes()
             moved = _launches_since(counters, base)
             if any(moved.values()):
-                raise AssertionError(f"{label}: this path launches no kernel, yet {moved}")
+                raise AssertionError(f"{label}: this path launches none of K1-K4, yet {moved}")
             n_coeffs = _run_all_gates(label, status, out_root, has_mpl)
             stages = ", ".join(f"{k} {status[k]} {v:.4f} s" for k, v in timer.stages.items())
             print(f"[run_all] {label} {what}: wall {walls[-1]:.4f} s; stages {stages}; {n_coeffs} coefficients "
@@ -1670,7 +1789,7 @@ def _on_off(label: str, run, counters: dict, card: str) -> tuple[dict, dict]:
             walls[mode].append(time.perf_counter() - t0)
     moved = _launches_since(counters, base)
     if any(moved.values()):
-        raise AssertionError(f"{label}: this path launches no kernel, yet {moved}")
+        raise AssertionError(f"{label}: this path launches none of K1-K4, yet {moved}")
     off, on = (statistics.median(walls[m]) for m in ("off", "on"))
     print(f"[mesh] {label}: warm wall off {_wall_text(walls['off'])}, on {_wall_text(walls['on'])}; on - off "
           f"{on - off:+.4f} s ({100 * (on - off) / off:+.1f}%; recorded, not claimed) ({card})")
@@ -1923,6 +2042,11 @@ def main() -> int:
         del U, Ut
     _phase_memory("the kernels", dev)
 
+    # 2b. the Farnebäck flow's kernels vs their plain versions, at the main paths' shapes
+    _await_card("the flow kernels", dev)
+    flow_results = _flow_kernels(dev, card)
+    _phase_memory("the flow kernels", dev)
+
     # 3. the main paths at full size; launch counts read before and after each run
     _await_card("the KS-2D paths", dev)
     base = dict(grid_search=True)
@@ -2013,7 +2137,8 @@ def main() -> int:
     full.setflags(write=False)  # a read-only stack is shipped to the card once (io_host.images.device_stack)
     print(f"[patch] made the 51 x 1024 x 1280 uint16 stack on the host in {time.perf_counter() - t0:.2f} s")
     _await_card("[patch]", dev)
-    _patch_phase(full, dev, card, counters)
+    flow_launches = collections.Counter()  # the flow kernels' launches in the main paths' timed runs
+    _patch_phase(full, dev, card, counters, flow_launches)
     _phase_memory("[patch]", dev)
     full_u8 = (full >> 8).astype(np.uint8)  # what load_images(mode="grayscale_u8") makes of 16-bit frames
     full_u8.setflags(write=False)
@@ -2022,7 +2147,7 @@ def main() -> int:
     _phase_memory("[analyze]", dev)
     del full_u8
     _await_card("[transport]", dev)
-    _transport_phase(full, dev, card, counters)
+    _transport_phase(full, dev, card, counters, flow_launches)
     _phase_memory("[transport]", dev)
     f255 = (full >> 8).astype(np.uint8) / 255.0  # what patch_sindy makes of 8-bit TIFFs
     f255.setflags(write=False)
@@ -2031,8 +2156,14 @@ def main() -> int:
     _phase_memory("[patch_sindy]", dev)
     del f255
     _await_card("[improved_registration]", dev)
-    _improved_registration_phase(full, dev, card, counters)
+    _improved_registration_phase(full, dev, card, counters, flow_launches)
     _phase_memory("[improved_registration]", dev)
+    for name in FLOW_KERNELS:
+        flow_results[name]["launches"] = flow_launches[name]
+        if flow_launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched on the main paths")
+    print(f"[kernel] the flow kernels' launches in the timed runs of the patch, transport and improved_registration "
+          f"paths: {dict(flow_launches)} ({card})")
     import tempfile
 
     tiffs = tempfile.TemporaryDirectory()  # phase 12 reads the stack from disk
@@ -2068,6 +2199,11 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
         for name, r in results.items()
+    ] + [
+        {"name": name, "route": "cuda", "source": "pdx_torch/csrc/farneback.cu", "replaces": None,
+         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+        for name, r in flow_results.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -185,15 +185,16 @@ def cmd_list_resolutions(argv: list[str]) -> int:
 
 
 KERNELS = {"K1": "pdx_fused_ks_gram", "K2": "pdx_fused_ks_gram_terms", "K3": "pdx_fused_blockwise_gram",
-           "K4": "pdx_fused_blockwise_gram_terms"}
+           "K4": "pdx_fused_blockwise_gram_terms", "farneback": "pdx_flow_windows"}
 
 
 def cmd_doctor(argv: list[str]) -> int:
     """Environment check of the card: torch and CUDA versions, each card's
     name and power limit, float64, the TF32 flags (the port keeps both off),
-    nvcc, whether the kernels K1-K4 build and load, and the dispatch and
-    device-to-host latencies. Exits 0 only when a card is visible and the
-    kernels load; never falls back to the CPU."""
+    nvcc, whether the kernels (K1-K4 and the Farnebäck flow's windowed
+    passes) build and load, and the dispatch and device-to-host latencies.
+    Exits 0 only when a card is visible and the kernels load; never falls
+    back to the CPU."""
     import os
     import subprocess
     import time

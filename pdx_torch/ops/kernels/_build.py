@@ -42,6 +42,9 @@ _SIGNATURES = {
     "pdx_fused_blockwise_gram_terms": (_I, [_P, _P, _I] + [_I] * 13 + [_F] * 4 + [_P, _I, _P, _P, _P]),
     "pdx_fused_blockwise_terms_smem_bytes": (_LL, [_I] * 6),
     "pdx_fused_blockwise_terms_occupancy": (_I, [_I] * 6 + [_PI, _PI]),
+    "pdx_flow_windows": (_I, [_I, _I] + [_P] * 5 + [_I] * 7 + [_P]),
+    "pdx_flow_windows_smem_bytes": (_LL, [_I] * 3),
+    "pdx_flow_windows_occupancy": (_I, [_I] * 3 + [_PI, _PI]),
 }
 
 

@@ -19,9 +19,13 @@ Every field may carry leading batch axes (independent frame pairs):
 ``pdx`` has a separate batched lowering for the TPU, the port one code path.
 Registration chains the frames on the host, one flow a frame, as ``pdx``'s
 CPU schedule does; ``compose`` and ``to_first`` run all pair flows as one
-batch. The separable passes are one product of sliding windows each
-(``ops/filters.symmetric_windows``), where ``pdx`` adds shifted copies tap
-by tap: the same sums in another order.
+batch. On the CPU the separable passes are one product of sliding windows
+each (``ops/filters.symmetric_windows``), where ``pdx`` adds shifted copies
+tap by tap: the same sums in another order. On a CUDA tensor the expansion
+(of a re-warp pass's warped frame too), each flow update (fetch, normal
+equations, window, solve) and the blur are one kernel launch each
+(``ops/kernels/flow_windows``); the plain versions ``_poly_exp_plain``,
+``_flow_iteration_plain`` and ``_blur_plain`` stay the CPU's path.
 """
 
 from __future__ import annotations
@@ -36,12 +40,15 @@ from torch import Tensor
 
 from pdx_torch.ops.filters import correlate1d_symmetric, symmetric_windows
 from pdx_torch.ops.interp import resize_bilinear, sample_reflect_xy, warp_flow, warp_flow_batch
+from pdx_torch.ops.kernels import flow_windows
 from pdx_torch.utils.graphs import StepGraph, constant_cache
 from pdx_torch.utils.profiling import count, span
 
-# Pixel-pairs per batched pyramid in batched_pair_flows: bounds the blur's
-# sliding windows (5 fields x 25 taps x 4 bytes a pixel-pair at winsize 25,
-# float32) to ~4 GB of the card's memory. Chunks change no result.
+# Pixel-pairs per batched pyramid in batched_pair_flows. On the card it
+# bounds a batch's planes (two five-plane expansions, the flows, the warped
+# and resized frames: ~20 planes, ~1.3 GB of float64 at 2^23); the CPU's
+# plain passes also hold the blur's sliding windows (5 fields x 25 taps a
+# pixel-pair at winsize 25). Chunks change no result.
 _FLOW_CHUNK_ELEMS = 1 << 23
 
 # moments in basis order [1, dr, dc, dr^2, dc^2, dr*dc]:
@@ -85,7 +92,36 @@ def _poly_exp_operators(n: int, sigma: float, dtype: torch.dtype, device: torch.
     )
 
 
+@constant_cache(maxsize=32)
+def _poly_exp_taps(n: int, sigma: float, dtype: torch.dtype, device: torch.device) -> Tensor:
+    """The expansion kernel's (18K,) taps: :func:`_poly_exp_operators`'
+    kernels [g, g x, g x^2] down H (3K), then the first five columns of its
+    (3K, 6) operator along W, row-major: the plain passes' own values, in
+    their order."""
+    Kr, M = _poly_exp_operators(n, sigma, dtype, device)
+    return torch.cat([Kr.T.reshape(-1), M[:, :5].reshape(-1)])
+
+
 def _poly_exp(f: Tensor, n: int, sigma: float) -> Tensor:
+    """Polynomial expansion of f (..., H, W): the (5, ..., H, W)
+    coefficients (axx, ayy, axy, bx, by) that the flow update reads, from
+    the kernel on a CUDA tensor, or :func:`_poly_exp_plain`'s six."""
+    if f.is_cuda:
+        return flow_windows.poly_expansion(f.contiguous(), _poly_exp_taps(n, float(sigma), f.dtype, f.device))
+    return _poly_exp_plain(f, n, sigma)
+
+
+def _warped_poly_exp(img: Tensor, flow: Tensor, n: int, sigma: float) -> Tensor:
+    """The expansion of ``img`` warped by the stacked ``flow``, as a re-warp
+    pass takes it: one kernel on a CUDA tensor (the warp is the expansion's
+    front), else the warp, then :func:`_poly_exp`."""
+    if img.is_cuda:
+        return flow_windows.warped_poly_expansion(img.contiguous(), flow.contiguous(),
+                                                  _poly_exp_taps(n, float(sigma), img.dtype, img.device))
+    return _poly_exp(warp_flow(img, flow[0], flow[1]), n, sigma)
+
+
+def _poly_exp_plain(f: Tensor, n: int, sigma: float) -> Tensor:
     """Polynomial expansion of f (..., H, W) -> (6, ..., H, W) coefficients
     in the order (axx, ayy, axy, bx, by, c): b is the gradient, A the
     quadratic form, f ~ c + b.d + d^T A d with d = (d_row, d_col). The five
@@ -113,7 +149,16 @@ def _blur_taps(ksize: int, sigma: float, gaussian: bool, dtype: torch.dtype, dev
 
 def _blur(f: Tensor, ksize: int, sigma: float, gaussian: bool) -> Tensor:
     """Window aggregation blur on the trailing two axes, symmetric border:
-    Gaussian (OPTFLOW_FARNEBACK_GAUSSIAN) or box."""
+    Gaussian (OPTFLOW_FARNEBACK_GAUSSIAN) or box; the kernel on a CUDA
+    tensor, else :func:`_blur_plain`."""
+    if f.is_cuda:
+        return flow_windows.window_blur(f.contiguous(), _blur_taps(int(ksize), float(sigma), bool(gaussian), f.dtype,
+                                                                   f.device))
+    return _blur_plain(f, ksize, sigma, gaussian)
+
+
+def _blur_plain(f: Tensor, ksize: int, sigma: float, gaussian: bool) -> Tensor:
+    """The blur as two products of sliding windows."""
     k = _blur_taps(int(ksize), float(sigma), bool(gaussian), f.dtype, f.device)
     return correlate1d_symmetric(correlate1d_symmetric(f, k, f.ndim - 2), k, f.ndim - 1)
 
@@ -127,8 +172,17 @@ def _pixel_grid(H: int, W: int, dtype: torch.dtype, device: torch.device) -> Ten
 
 
 def _flow_iteration(exp1: Tensor, exp2: Tensor, flow: Tensor, winsize: int, gaussian_win: bool) -> Tensor:
+    """One displacement update at a fixed level: the kernel on a CUDA
+    tensor, else :func:`_flow_iteration_plain`."""
+    if flow.is_cuda:
+        taps = _blur_taps(int(winsize), float(winsize * 0.3), bool(gaussian_win), flow.dtype, flow.device)
+        return flow_windows.flow_update(exp1[:5].contiguous(), exp2[:5].contiguous(), flow.contiguous(), taps)
+    return _flow_iteration_plain(exp1, exp2, flow, winsize, gaussian_win)
+
+
+def _flow_iteration_plain(exp1: Tensor, exp2: Tensor, flow: Tensor, winsize: int, gaussian_win: bool) -> Tensor:
     """One displacement update at a fixed level. ``exp1``/``exp2`` are
-    (6, ..., H, W) expansions, ``flow`` the stacked (2, ..., H, W) field
+    (5 or 6, ..., H, W) expansions, ``flow`` the stacked (2, ..., H, W) field
     (d_row, d_col); returns the new one.
 
     Pairs of fields travel stacked, so each line below is one launch for
@@ -147,7 +201,7 @@ def _flow_iteration(exp1: Tensor, exp2: Tensor, flow: Tensor, winsize: int, gaus
     a_diag = diag * diag + half * half  # (a11, a22)
     a12 = half * (A[0] + A[1])
     h = diag * db + half * db.flip(0)  # (h1, h2)
-    agg = _blur(torch.cat([a_diag, a12[None], h]), winsize, winsize * 0.3, gaussian_win)
+    agg = _blur_plain(torch.cat([a_diag, a12[None], h]), winsize, winsize * 0.3, gaussian_win)
     a_diag, a12, h = agg[:2], agg[2], agg[3:]
 
     det = a_diag[0] * a_diag[1] - a12 * a12 + 1e-12
@@ -215,7 +269,7 @@ def farneback_flow(
     # re-warp refinement at full resolution; exp1 is the finest level's
     for _ in range(int(refine)):
         with span("farneback.refine"):
-            expw = _poly_exp(warp_flow(img2, flow[0], flow[1]), n, poly_sigma)
+            expw = _warped_poly_exp(img2, flow, n, poly_sigma)
             d = torch.zeros_like(flow)
             for _ in range(2):
                 d = _flow_iteration(exp1, expw, d, winsize, gaussian_win)

@@ -184,10 +184,6 @@ def cmd_list_resolutions(argv: list[str]) -> int:
     return 0
 
 
-KERNELS = {"K1": "pdx_fused_ks_gram", "K2": "pdx_fused_ks_gram_terms", "K3": "pdx_fused_blockwise_gram",
-           "K4": "pdx_fused_blockwise_gram_terms", "farneback": "pdx_flow_windows"}
-
-
 def cmd_doctor(argv: list[str]) -> int:
     """Environment check of the card: torch and CUDA versions, each card's
     name and power limit, float64, the TF32 flags (the port keeps both off),
@@ -233,8 +229,9 @@ def cmd_doctor(argv: list[str]) -> int:
     try:
         t0 = time.perf_counter()
         lib = _build.library()
-        loaded = [k for k, sym in KERNELS.items() if hasattr(lib, sym)]
-        print(f"kernels: {len(loaded)} of {len(KERNELS)} loaded ({', '.join(f'{k} {KERNELS[k]}' for k in loaded)}) "
+        loaded = [k for k, sym in _build.KERNELS.items() if hasattr(lib, sym)]
+        print(f"kernels: {len(loaded)} of {len(_build.KERNELS)} loaded "
+              f"({', '.join(f'{k} {_build.KERNELS[k]}' for k in loaded)}) "
               f"in {time.perf_counter() - t0:.2f} s")
     except Exception as e:  # a failed build is the finding this command reports
         loaded = []
@@ -252,7 +249,7 @@ def cmd_doctor(argv: list[str]) -> int:
     t0 = time.perf_counter()
     float((y @ x)[0, 0])
     print(f"device->host read round-trip: {(time.perf_counter() - t0) * 1000:.3f} ms")
-    return 0 if len(loaded) == len(KERNELS) else 1
+    return 0 if len(loaded) == len(_build.KERNELS) else 1
 
 
 COMMANDS = {

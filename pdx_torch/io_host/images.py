@@ -105,6 +105,33 @@ def _fast_tiff_gray(path: Path) -> np.ndarray | None:
     except Exception:
         return None
 
+def write_tiff(path, frame) -> None:
+    """One uncompressed, single-strip, little-endian grayscale TIFF of an
+    (H, W) uint8 or uint16 frame: the baseline layout lab cameras write and
+    :func:`_fast_tiff_gray` decodes (no PIL or cv2 needed)."""
+    import struct
+
+    frame = np.ascontiguousarray(frame)
+    if frame.ndim != 2 or frame.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"an (H, W) uint8 or uint16 frame, got {frame.shape} {frame.dtype}")
+    h, w = frame.shape
+    data = frame.astype(frame.dtype.newbyteorder("<"), copy=False).tobytes()
+    SHORT, LONG = 3, 4
+    tags = [(256, LONG, w), (257, LONG, h), (258, SHORT, 8 * frame.itemsize), (259, SHORT, 1), (262, SHORT, 1),
+            (273, LONG, 0), (277, SHORT, 1), (278, LONG, h), (279, LONG, len(data)), (284, SHORT, 1)]
+    offset = 8 + 2 + 12 * len(tags) + 4  # header, IFD, then the strip
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHII", tag, typ, 1, offset if tag == 273 else value) for tag, typ, value in tags)
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8) + ifd + struct.pack("<I", 0) + data)
+
+
+def write_tiff_stack(folder, U) -> None:
+    """Frames of U as folder/frame_000.tif, frame_001.tif, ... (sorted names)."""
+    Path(folder).mkdir(parents=True, exist_ok=True)
+    for i, frame in enumerate(U):
+        write_tiff(Path(folder) / f"frame_{i:03d}.tif", frame)
+
 
 def _read_gray(path: Path) -> np.ndarray | None:
     img = _fast_tiff_gray(path)

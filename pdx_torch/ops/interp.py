@@ -114,6 +114,14 @@ def _fold_sizes(H: int, W: int, device: torch.device) -> tuple[Tensor, Tensor]:
     return n, torch.clamp(2 * (n - 1), min=1)
 
 
+@constant_cache(maxsize=64)
+def pixel_grid(H: int, W: int, dtype: torch.dtype, device: torch.device) -> Tensor:
+    """(2, H, W): each pixel's (row, col)."""
+    r = torch.arange(H, dtype=dtype, device=device)
+    c = torch.arange(W, dtype=dtype, device=device)
+    return torch.stack(torch.meshgrid(r, c, indexing="ij"))
+
+
 def sample_reflect_xy(f: Tensor, xy: Tensor) -> Tensor:
     """:func:`bilinear_sample_reflect` at stacked coordinates ``xy`` =
     (x, y), shape (2, ..., h, w): every index operation runs once for both

@@ -6,10 +6,15 @@ links the objects into one shared library with a plain C interface, under
 ``build/pdx_torch/<hash>/`` at the repository root; ctypes loads it. The
 hash covers the sources, the headers and the compiler flags, so an edit
 rebuilds. Only the sources in the checkout and the CUDA toolkit are used.
+
+``_SIGNATURES`` is the one registry of the C entry points: each symbol with
+its label, if it is a kernel's launch (``KERNELS``, which ``doctor``
+lists), and its ctypes signature.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -17,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
@@ -29,23 +36,24 @@ NVCC_FLAGS = (
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
-_SIGNATURES = {
-    "pdx_fused_ks_gram": (_I, [_P, _P] + [_I] * 10 + [_F] * 4 + [_P, _P, _P]),
-    "pdx_band_smem_bytes": (_LL, [_I] * 3),
-    "pdx_fused_ks_gram_occupancy": (_I, [_I] * 5 + [_PI, _PI]),
-    "pdx_fused_blockwise_gram": (_I, [_P, _P] + [_I] * 13 + [_F] * 4 + [_P, _P, _P]),
-    "pdx_fused_blockwise_smem_bytes": (_LL, [_I] * 6),
-    "pdx_fused_blockwise_occupancy": (_I, [_I] * 7 + [_PI, _PI]),
-    "pdx_fused_ks_gram_terms": (_I, [_P, _P, _I] + [_I] * 9 + [_F] * 4 + [_P, _I, _P, _P, _P]),
-    "pdx_fused_ks_gram_terms_smem_bytes": (_LL, [_I, _I, _I]),
-    "pdx_fused_ks_gram_terms_occupancy": (_I, [_I] * 4 + [_PI, _PI]),
-    "pdx_fused_blockwise_gram_terms": (_I, [_P, _P, _I] + [_I] * 13 + [_F] * 4 + [_P, _I, _P, _P, _P]),
-    "pdx_fused_blockwise_terms_smem_bytes": (_LL, [_I] * 6),
-    "pdx_fused_blockwise_terms_occupancy": (_I, [_I] * 6 + [_PI, _PI]),
-    "pdx_flow_windows": (_I, [_I, _I] + [_P] * 5 + [_I] * 7 + [_P]),
-    "pdx_flow_windows_smem_bytes": (_LL, [_I] * 3),
-    "pdx_flow_windows_occupancy": (_I, [_I] * 3 + [_PI, _PI]),
+_SIGNATURES = {  # symbol: (label of a kernel's launch or None, restype, argtypes)
+    "pdx_fused_ks_gram": ("K1", _I, [_P, _P] + [_I] * 10 + [_F] * 4 + [_P, _P, _P]),
+    "pdx_band_smem_bytes": (None, _LL, [_I] * 3),
+    "pdx_fused_ks_gram_occupancy": (None, _I, [_I] * 5 + [_PI, _PI]),
+    "pdx_fused_ks_gram_terms": ("K2", _I, [_P, _P, _I] + [_I] * 9 + [_F] * 4 + [_P, _I, _P, _P, _P]),
+    "pdx_fused_ks_gram_terms_smem_bytes": (None, _LL, [_I, _I, _I]),
+    "pdx_fused_ks_gram_terms_occupancy": (None, _I, [_I] * 4 + [_PI, _PI]),
+    "pdx_fused_blockwise_gram": ("K3", _I, [_P, _P] + [_I] * 13 + [_F] * 4 + [_P, _P, _P]),
+    "pdx_fused_blockwise_smem_bytes": (None, _LL, [_I] * 6),
+    "pdx_fused_blockwise_occupancy": (None, _I, [_I] * 7 + [_PI, _PI]),
+    "pdx_fused_blockwise_gram_terms": ("K4", _I, [_P, _P, _I] + [_I] * 13 + [_F] * 4 + [_P, _I, _P, _P, _P]),
+    "pdx_fused_blockwise_terms_smem_bytes": (None, _LL, [_I] * 6),
+    "pdx_fused_blockwise_terms_occupancy": (None, _I, [_I] * 6 + [_PI, _PI]),
+    "pdx_flow_windows": ("farneback", _I, [_I, _I] + [_P] * 5 + [_I] * 7 + [_P]),
+    "pdx_flow_windows_smem_bytes": (None, _LL, [_I] * 3),
+    "pdx_flow_windows_occupancy": (None, _I, [_I] * 3 + [_PI, _PI]),
 }
+KERNELS = {label: symbol for symbol, (label, *_) in _SIGNATURES.items() if label}  # label -> launch symbol
 
 
 def _nvcc() -> str:
@@ -100,8 +108,23 @@ def library() -> ctypes.CDLL:
         for obj in objs:
             obj.unlink()
     lib = ctypes.CDLL(str(lib_path))
-    for name, (restype, argtypes) in _SIGNATURES.items():
+    for name, (_label, restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def check_smem(nbytes: int, device: torch.device, what: str) -> None:
+    """Raise if a CTA of ``what`` needs more shared memory than the card allows."""
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if nbytes > limit:
+        raise ValueError(f"{what} needs {nbytes} B of shared memory per CTA; the card allows {limit}")
+
+
+def launch_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (nothing to
+    enter when it already is)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

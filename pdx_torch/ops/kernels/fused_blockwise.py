@@ -26,6 +26,7 @@ import torch
 from torch import Tensor
 
 from pdx_torch.library.blockwise import build_blockwise_dataset
+from pdx_torch.ops.kernels._build import check_smem, launch_device
 from pdx_torch.ops.kernels.fused_gram import (
     _BAND_MAX_THREADS,
     _ROUTE_ROUNDED,
@@ -34,11 +35,9 @@ from pdx_torch.ops.kernels.fused_gram import (
     _band_route,
     _band_smem_bytes,
     _check_inputs,
-    _check_smem,
     _chunks,
     _codes_arg,
     _kernel_inputs,
-    _launch_device,
     _long_chunks,
     _rounded_if_too_large,
     _ks_terms_2d,
@@ -145,7 +144,7 @@ def _blockwise_launch(
     smem = _blockwise_smem_bytes(W, bx, by, kb, G, 8 if staged64 else 4)
     if smem != lib.pdx_fused_blockwise_smem_bytes(W, bx, by, kb, G, staged64):
         raise RuntimeError("fused_blockwise_gram: the planned shared memory differs from the kernel's layout")
-    _check_smem(smem, device, f"fused_blockwise_gram with blocks ({bt}, {bx}, {by})")
+    check_smem(smem, device, f"fused_blockwise_gram with blocks ({bt}, {bx}, {by})")
     regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
     rc = lib.pdx_fused_blockwise_occupancy(W, bx, by, kb, G, f64, route, ctypes.byref(regs), ctypes.byref(ctas))
     if rc != 0 or ctas.value < 1:
@@ -187,7 +186,7 @@ def fused_blockwise_gram(
     route, kb, G, tpc, n_bands, n_chunks = _blockwise_launch(T, H, W, bt, bx, by, f64, aligned, U.device)
     rows = torch.empty((n_bands * n_chunks + 1, 14), dtype=torch.float64, device=U.device)
     out = rows[0]  # the statistics; the CTAs' partial rows follow
-    with _launch_device(U.device):
+    with launch_device(U.device):
         rc = lib.pdx_fused_blockwise_gram(
             Uk.data_ptr(), Utk.data_ptr(), f64, route, T, H, W, bt, bx, by, kb, G, tpc,
             n_bands, n_chunks, *_stencil_args(dx, dy), rows[1:].data_ptr(),
@@ -247,7 +246,7 @@ def _blockwise_terms_launch(
     from pdx_torch.ops.kernels._build import library
 
     kbx, kby, G, ntx, nty = _blockwise_plan(H, W, bx, by)
-    _check_smem(
+    check_smem(
         library().pdx_fused_blockwise_terms_smem_bytes(kbx, kby, bx, by, G, f64), device,
         f"fused_blockwise_gram_terms with blocks ({bt}, {bx}, {by})",
     )

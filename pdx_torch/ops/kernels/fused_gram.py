@@ -20,12 +20,12 @@ statistics come back as float64. Each launch adds 1 to the tracer's count
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
 from torch import Tensor
 
+from pdx_torch.ops.kernels._build import check_smem, launch_device
 from pdx_torch.ops.linalg import gram_stats
 from pdx_torch.utils.profiling import count
 
@@ -207,12 +207,6 @@ def _long_chunks(n_items: int, n_bands: int, slots: int) -> tuple[int, int]:
     return per, -(-n_items // per)
 
 
-def _check_smem(nbytes: int, device: torch.device, what: str) -> None:
-    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
-    if nbytes > limit:
-        raise ValueError(f"{what} needs {nbytes} B of shared memory per CTA; the card allows {limit}")
-
-
 def _stencil_args(dx: float, dy: float) -> tuple[float, float, float, float]:
     """dx*dx, dy*dy, 2*dx, 2*dy — ctypes rounds each to float32, the value
     the plain float32 version divides by."""
@@ -224,14 +218,6 @@ def _true_gram_index(device: torch.device) -> Tensor:
     """(3, 3) positions of the Gram entries in a K1/K3 row, kept on the
     device so that unpacking a row copies nothing from the host."""
     return torch.tensor([[0, 1, 2], [1, 3, 4], [2, 4, 5]], device=device)
-
-
-def _launch_device(device: torch.device):
-    """A context in which ``device`` is the current CUDA device (nothing to
-    enter when it already is)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
 
 
 def _stats_from_row(out: Tensor, n: float) -> dict[str, Tensor]:
@@ -311,7 +297,7 @@ def _terms_launch(T: int, H: int, W: int, f64: int, device: torch.device) -> tup
 
     TH, ntx = _tile(H, 1, _TERMS_MAX_TILE)
     TW, nty = _tile(W, 1, _TERMS_MAX_TILE)
-    _check_smem(library().pdx_fused_ks_gram_terms_smem_bytes(TH, TW, f64), device, "fused_ks_gram_terms")
+    check_smem(library().pdx_fused_ks_gram_terms_smem_bytes(TH, TW, f64), device, "fused_ks_gram_terms")
     fpc, ntz = _chunks(T, ntx * nty)
     return TH, TW, fpc, ntx, nty, ntz
 
@@ -375,7 +361,7 @@ def _gram_launch(T: int, H: int, W: int, f64: int, route: int, device: torch.dev
     smem = _band_smem_bytes(TH, W, 8 if staged64 else 4)
     if smem != lib.pdx_band_smem_bytes(TH, W, staged64):
         raise RuntimeError("fused_ks_gram: the planned shared memory differs from the kernel's layout")
-    _check_smem(smem, device, "fused_ks_gram")
+    check_smem(smem, device, "fused_ks_gram")
     regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
     rc = lib.pdx_fused_ks_gram_occupancy(TH, W, _K1_THREADS, f64, route, ctypes.byref(regs), ctypes.byref(ctas))
     if rc != 0 or ctas.value < 1:
@@ -407,7 +393,7 @@ def fused_ks_gram(U: Tensor, Ut: Tensor, *, dx: float, dy: float) -> dict[str, T
     route, TH, threads, fpc, n_bands, n_chunks = _gram_launch(T, H, W, f64, aligned, U.device)
     rows = torch.empty((n_bands * n_chunks + 1, 14), dtype=torch.float64, device=U.device)
     out = rows[0]  # the statistics; the CTAs' partial rows follow
-    with _launch_device(U.device):
+    with launch_device(U.device):
         rc = lib.pdx_fused_ks_gram(
             Uk.data_ptr(), Utk.data_ptr(), f64, route, T, H, W, TH, threads, fpc, n_bands, n_chunks,
             *_stencil_args(dx, dy), rows[1:].data_ptr(), out.data_ptr(),

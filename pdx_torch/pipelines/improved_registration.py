@@ -31,10 +31,11 @@ from pdx_torch.io_host.artifacts import write_json
 from pdx_torch.io_host.images import device_stack, load_images
 from pdx_torch.ops.filters import gaussian_filter_reflect, savgol_time
 from pdx_torch.ops.interp import warp_flow
+from pdx_torch.ops.kernels.flow_windows import window_blur
 from pdx_torch.ops.linalg import gram_stats
 from pdx_torch.ops.metrics import r2_score
 from pdx_torch.register.dis import dis_flow
-from pdx_torch.register.farneback import _blur, farneback_flow, farneback_register_sequence
+from pdx_torch.register.farneback import farneback_flow, farneback_register_sequence
 from pdx_torch.register.quality import improvement, mean_flow_magnitude
 from pdx_torch.solve.stridge import stridge_from_stats, stridge_qr
 from pdx_torch.utils.profiling import null_stage, span
@@ -67,7 +68,7 @@ class ImprovedRegistrationConfig:
 def _dis_step(ref: Tensor, mov: Tensor, sign: float) -> Tensor:
     """mov warped onto ref by their DIS flow, smoothed 11x11 / sigma 2."""
     fx, fy = dis_flow(ref, mov)
-    fs = _blur(torch.stack([fx, fy]), 11, 2.0, True)
+    fs = window_blur(torch.stack([fx, fy]), 11, 2.0, True)
     return warp_flow(mov, sign * fs[0], sign * fs[1], border="reflect")
 
 
@@ -242,8 +243,8 @@ def slide_flows(U: Tensor) -> tuple[Tensor, Tensor, int]:
     Farnebäck flow (its defaults) and the DIS flow of that pair, each
     smoothed 11x11 / sigma 2: ((2, H, W), (2, H, W), frame)."""
     fi = min(15, U.shape[0] - 2)
-    fb = _blur(torch.stack(farneback_flow(U[fi], U[fi + 1])), 11, 2.0, True)
-    dz = _blur(torch.stack(dis_flow(U[fi], U[fi + 1])), 11, 2.0, True)
+    fb = window_blur(torch.stack(farneback_flow(U[fi], U[fi + 1])), 11, 2.0, True)
+    dz = window_blur(torch.stack(dis_flow(U[fi], U[fi + 1])), 11, 2.0, True)
     return fb, dz, fi
 
 

@@ -21,11 +21,11 @@ Registration chains the frames on the host, one flow a frame, as ``pdx``'s
 CPU schedule does; ``compose`` and ``to_first`` run all pair flows as one
 batch. On the CPU the separable passes are one product of sliding windows
 each (``ops/filters.symmetric_windows``), where ``pdx`` adds shifted copies
-tap by tap: the same sums in another order. On a CUDA tensor the expansion
-(of a re-warp pass's warped frame too), each flow update (fetch, normal
-equations, window, solve) and the blur are one kernel launch each
-(``ops/kernels/flow_windows``); the plain versions ``_poly_exp_plain``,
-``_flow_iteration_plain`` and ``_blur_plain`` stay the CPU's path.
+tap by tap: the same sums in another order. The windowed passes live in
+``ops/kernels/flow_windows``: the expansion (of a re-warp pass's warped
+frame too), each flow update (fetch, normal equations, window, solve) and
+the blur, each one kernel launch on a CUDA tensor and its plain version on
+the CPU.
 """
 
 from __future__ import annotations
@@ -34,14 +34,12 @@ import functools
 import math
 from collections import OrderedDict
 
-import numpy as np
 import torch
 from torch import Tensor
 
-from pdx_torch.ops.filters import correlate1d_symmetric, symmetric_windows
-from pdx_torch.ops.interp import resize_bilinear, sample_reflect_xy, warp_flow, warp_flow_batch
+from pdx_torch.ops.interp import pixel_grid, resize_bilinear, sample_reflect_xy, warp_flow, warp_flow_batch
 from pdx_torch.ops.kernels import flow_windows
-from pdx_torch.utils.graphs import StepGraph, constant_cache
+from pdx_torch.utils.graphs import StepGraph
 from pdx_torch.utils.profiling import count, span
 
 # Pixel-pairs per batched pyramid in batched_pair_flows. On the card it
@@ -50,163 +48,6 @@ from pdx_torch.utils.profiling import count, span
 # plain passes also hold the blur's sliding windows (5 fields x 25 taps a
 # pixel-pair at winsize 25). Chunks change no result.
 _FLOW_CHUNK_ELEMS = 1 << 23
-
-# moments in basis order [1, dr, dc, dr^2, dc^2, dr*dc]:
-# (row kernel, col kernel) = (g,g) (gx,g) (g,gx) (gxx,g) (g,gxx) (gx,gx)
-_ROW_OF_MOMENT = (0, 1, 0, 2, 0, 1)  # index into the row kernels [g, gx, gxx]
-_COL_OF_MOMENT = (0, 0, 1, 0, 2, 1)  # index into the col kernels [g, gx, gxx]
-# expansion output order (axx, ayy, axy, bx, by, c) as basis indices
-_EXP_ORDER = [3, 4, 5, 1, 2, 0]
-
-
-def _make_invG(n: int, sigma: float) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Host float64 (g, x, invG): the normalised 1-D Gaussian and offsets of
-    the (2n+1)-tap window, and the inverse of the 6x6 normal matrix of the
-    weighted quadratic fit."""
-    x = np.arange(-n, n + 1, dtype=np.float64)
-    g1 = np.exp(-(x**2) / (2.0 * sigma * sigma))
-    g1 /= g1.sum()
-    OX, OY = np.meshgrid(x, x, indexing="ij")
-    W = np.outer(g1, g1)
-    B = np.stack([np.ones_like(OX), OX, OY, OX**2, OY**2, OX * OY], axis=-1).reshape(-1, 6)
-    G = (B * W.reshape(-1)[:, None]).T @ B
-    return g1, x, np.linalg.inv(G)
-
-
-@constant_cache(maxsize=32)
-def _poly_exp_operators(n: int, sigma: float, dtype: torch.dtype, device: torch.device) -> tuple[Tensor, Tensor]:
-    """(Kr (K, 3), M (3K, 6)): the row kernels [g, g x, g x^2], and the
-    column kernels of the six moments with invG folded in, so that
-    coef[k] = sum over (c, t) of M[c K + t, k] * R_c(w + t - n) for the
-    row-pass outputs R_c, k in :data:`_EXP_ORDER`."""
-    g, x, invG = _make_invG(n, sigma)
-    rows = np.stack([g, g * x, g * x * x])  # (3, K)
-    K = rows.shape[1]
-    M = np.zeros((3, K, 6))
-    for j in range(6):
-        M[_ROW_OF_MOMENT[j]] += rows[_COL_OF_MOMENT[j]][:, None] * invG[:, j][None, :]
-    M = M[:, :, _EXP_ORDER]
-    return (
-        torch.as_tensor(rows.T.copy(), dtype=dtype, device=device),
-        torch.as_tensor(M.reshape(3 * K, 6), dtype=dtype, device=device),
-    )
-
-
-@constant_cache(maxsize=32)
-def _poly_exp_taps(n: int, sigma: float, dtype: torch.dtype, device: torch.device) -> Tensor:
-    """The expansion kernel's (18K,) taps: :func:`_poly_exp_operators`'
-    kernels [g, g x, g x^2] down H (3K), then the first five columns of its
-    (3K, 6) operator along W, row-major: the plain passes' own values, in
-    their order."""
-    Kr, M = _poly_exp_operators(n, sigma, dtype, device)
-    return torch.cat([Kr.T.reshape(-1), M[:, :5].reshape(-1)])
-
-
-def _poly_exp(f: Tensor, n: int, sigma: float) -> Tensor:
-    """Polynomial expansion of f (..., H, W): the (5, ..., H, W)
-    coefficients (axx, ayy, axy, bx, by) that the flow update reads, from
-    the kernel on a CUDA tensor, or :func:`_poly_exp_plain`'s six."""
-    if f.is_cuda:
-        return flow_windows.poly_expansion(f.contiguous(), _poly_exp_taps(n, float(sigma), f.dtype, f.device))
-    return _poly_exp_plain(f, n, sigma)
-
-
-def _warped_poly_exp(img: Tensor, flow: Tensor, n: int, sigma: float) -> Tensor:
-    """The expansion of ``img`` warped by the stacked ``flow``, as a re-warp
-    pass takes it: one kernel on a CUDA tensor (the warp is the expansion's
-    front), else the warp, then :func:`_poly_exp`."""
-    if img.is_cuda:
-        return flow_windows.warped_poly_expansion(img.contiguous(), flow.contiguous(),
-                                                  _poly_exp_taps(n, float(sigma), img.dtype, img.device))
-    return _poly_exp(warp_flow(img, flow[0], flow[1]), n, sigma)
-
-
-def _poly_exp_plain(f: Tensor, n: int, sigma: float) -> Tensor:
-    """Polynomial expansion of f (..., H, W) -> (6, ..., H, W) coefficients
-    in the order (axx, ayy, axy, bx, by, c): b is the gradient, A the
-    quadratic form, f ~ c + b.d + d^T A d with d = (d_row, d_col). The five
-    fields the flow update fetches come first, so they are one slice."""
-    Kr, M = _poly_exp_operators(n, float(sigma), f.dtype, f.device)
-    K = Kr.shape[0]
-    H, W = f.shape[-2], f.shape[-1]
-    R = (symmetric_windows(f, K, f.ndim - 2) @ Kr).transpose(-3, -2)  # (..., H, W, 3)
-    win = symmetric_windows(R, K, R.ndim - 2)  # (..., H, 3, W, K)
-    coef = win.transpose(-3, -2).reshape(f.shape[:-2] + (H, W, 3 * K)) @ M  # (..., H, W, 6)
-    return coef.movedim(-1, 0).contiguous()
-
-
-@constant_cache(maxsize=32)
-def _blur_taps(ksize: int, sigma: float, gaussian: bool, dtype: torch.dtype, device: torch.device) -> Tensor:
-    n = ksize // 2
-    if gaussian:
-        x = np.arange(-n, n + 1, dtype=np.float64)
-        k = np.exp(-(x**2) / (2.0 * sigma * sigma))
-        k /= k.sum()
-    else:
-        k = np.full(2 * n + 1, 1.0 / (2 * n + 1))
-    return torch.as_tensor(k, dtype=dtype, device=device)
-
-
-def _blur(f: Tensor, ksize: int, sigma: float, gaussian: bool) -> Tensor:
-    """Window aggregation blur on the trailing two axes, symmetric border:
-    Gaussian (OPTFLOW_FARNEBACK_GAUSSIAN) or box; the kernel on a CUDA
-    tensor, else :func:`_blur_plain`."""
-    if f.is_cuda:
-        return flow_windows.window_blur(f.contiguous(), _blur_taps(int(ksize), float(sigma), bool(gaussian), f.dtype,
-                                                                   f.device))
-    return _blur_plain(f, ksize, sigma, gaussian)
-
-
-def _blur_plain(f: Tensor, ksize: int, sigma: float, gaussian: bool) -> Tensor:
-    """The blur as two products of sliding windows."""
-    k = _blur_taps(int(ksize), float(sigma), bool(gaussian), f.dtype, f.device)
-    return correlate1d_symmetric(correlate1d_symmetric(f, k, f.ndim - 2), k, f.ndim - 1)
-
-
-@constant_cache(maxsize=64)
-def _pixel_grid(H: int, W: int, dtype: torch.dtype, device: torch.device) -> Tensor:
-    """(2, H, W): each pixel's (row, col)."""
-    r = torch.arange(H, dtype=dtype, device=device)
-    c = torch.arange(W, dtype=dtype, device=device)
-    return torch.stack(torch.meshgrid(r, c, indexing="ij"))
-
-
-def _flow_iteration(exp1: Tensor, exp2: Tensor, flow: Tensor, winsize: int, gaussian_win: bool) -> Tensor:
-    """One displacement update at a fixed level: the kernel on a CUDA
-    tensor, else :func:`_flow_iteration_plain`."""
-    if flow.is_cuda:
-        taps = _blur_taps(int(winsize), float(winsize * 0.3), bool(gaussian_win), flow.dtype, flow.device)
-        return flow_windows.flow_update(exp1[:5].contiguous(), exp2[:5].contiguous(), flow.contiguous(), taps)
-    return _flow_iteration_plain(exp1, exp2, flow, winsize, gaussian_win)
-
-
-def _flow_iteration_plain(exp1: Tensor, exp2: Tensor, flow: Tensor, winsize: int, gaussian_win: bool) -> Tensor:
-    """One displacement update at a fixed level. ``exp1``/``exp2`` are
-    (5 or 6, ..., H, W) expansions, ``flow`` the stacked (2, ..., H, W) field
-    (d_row, d_col); returns the new one.
-
-    Pairs of fields travel stacked, so each line below is one launch for
-    both: with M = [[A_xx, A_xy/2], [A_xy/2, A_yy]] (symmetric) the update
-    solves (M^T M) d = M db, db = -0.5 (b2 - b1) + M d, every product in
-    ``pdx``'s order."""
-    H, W = exp1.shape[-2], exp1.shape[-1]
-    grid = _pixel_grid(H, W, flow.dtype, flow.device).view((2,) + (1,) * (flow.ndim - 3) + (H, W))
-    # one fetch of the five fields (axx, ayy, axy, bx, by) of frame 2 at x + d
-    fetched = sample_reflect_xy(exp2[:5], grid + flow)
-    A = 0.5 * (exp1[:3] + fetched[:3])  # A_xx, A_yy, A_xy
-    diag, half = A[:2], 0.5 * A[2]  # (A_xx, A_yy), A_xy / 2
-    db = (diag * flow + half * flow.flip(0)) - 0.5 * (fetched[3:] - exp1[3:5])  # (db_x, db_y)
-
-    # the normal equations, aggregated over the window
-    a_diag = diag * diag + half * half  # (a11, a22)
-    a12 = half * (A[0] + A[1])
-    h = diag * db + half * db.flip(0)  # (h1, h2)
-    agg = _blur_plain(torch.cat([a_diag, a12[None], h]), winsize, winsize * 0.3, gaussian_win)
-    a_diag, a12, h = agg[:2], agg[2], agg[3:]
-
-    det = a_diag[0] * a_diag[1] - a12 * a12 + 1e-12
-    return (a_diag.flip(0) * h - a12 * h.flip(0)) / det
-
 
 def farneback_flow(
     img1: Tensor,
@@ -236,7 +77,6 @@ def farneback_flow(
     ``farneback.refine``, each counting its ``farneback.iterations``.
     """
     H, W = img1.shape[-2], img1.shape[-1]
-    n = poly_n // 2
 
     shapes = [(H, W)]  # pyramid, coarsest last
     for _ in range(1, levels):
@@ -255,24 +95,24 @@ def farneback_flow(
     flow = None  # stacked (d_row, d_col)
     for shp in reversed(shapes):
         with span("farneback.level"):
-            exp1 = _poly_exp(to_shape(img1, shp), n, poly_sigma)
-            exp2 = _poly_exp(to_shape(img2, shp), n, poly_sigma)
+            exp1 = flow_windows.poly_expansion(to_shape(img1, shp), poly_n, poly_sigma)
+            exp2 = flow_windows.poly_expansion(to_shape(img2, shp), poly_n, poly_sigma)
             if flow is None:
                 flow = torch.zeros((2,) + img1.shape[:-2] + shp, dtype=img1.dtype, device=img1.device)
             else:
                 up = resize_bilinear(flow, shp[0], shp[1])
                 flow = torch.stack([up[0] * (shp[0] / flow.shape[-2]), up[1] * (shp[1] / flow.shape[-1])])
             for _ in range(iterations):
-                flow = _flow_iteration(exp1, exp2, flow, winsize, gaussian_win)
+                flow = flow_windows.flow_update(exp1, exp2, flow, winsize, gaussian_win)
             count("farneback.iterations", iterations)
 
     # re-warp refinement at full resolution; exp1 is the finest level's
     for _ in range(int(refine)):
         with span("farneback.refine"):
-            expw = _warped_poly_exp(img2, flow, n, poly_sigma)
+            expw = flow_windows.warped_poly_expansion(img2, flow, poly_n, poly_sigma)
             d = torch.zeros_like(flow)
             for _ in range(2):
-                d = _flow_iteration(exp1, expw, d, winsize, gaussian_win)
+                d = flow_windows.flow_update(exp1, expw, d, winsize, gaussian_win)
             flow = flow + d
             count("farneback.iterations", 2)
     return flow[0], flow[1]
@@ -306,7 +146,7 @@ def _chain_step(ref: Tensor, cur: Tensor, *, flow_ds: int, warp_sign: float, ksi
         fx = resize_bilinear(fx, H, W) * (H / fx.shape[-2])
         fy = resize_bilinear(fy, H, W) * (W / fy.shape[-1])
     with span("farneback.smooth_warp"):
-        fs = _blur(torch.stack([fx, fy]), ksize, sigma, True).to(cur.dtype)
+        fs = flow_windows.window_blur(torch.stack([fx, fy]), ksize, sigma, True).to(cur.dtype)
         return warp_flow(cur, warp_sign * fs[0], warp_sign * fs[1])
 
 
@@ -443,7 +283,7 @@ def compose_flow_chain(fx: Tensor, fy: Tensor, *, batched: bool = False) -> tupl
     ta = 1 if batched else 0
     fxs, fys = fx.movedim(ta, 0), fy.movedim(ta, 0)
     H, W = fx.shape[-2], fx.shape[-1]
-    grid = _pixel_grid(H, W, fx.dtype, fx.device).view((2,) + (1,) * (fxs.ndim - 3) + (H, W))
+    grid = pixel_grid(H, W, fx.dtype, fx.device).view((2,) + (1,) * (fxs.ndim - 3) + (H, W))
     F = torch.zeros((2,) + fxs.shape[1:], dtype=fx.dtype, device=fx.device)  # stacked (F_x, F_y)
     out = []
     for f in torch.stack([fxs, fys], dim=1):  # (2, [P,] H, W) a step
@@ -484,7 +324,7 @@ def _register_compose_impl(U: Tensor, *, ksize: int, sigma: float, flow_static, 
     Uf = U.to(f32)
     a = Uf[:1].expand_as(Uf[1:]) if to_first else Uf[:-1]
     fx, fy = batched_pair_flows(a, Uf[1:], flow_static=flow_static)
-    sm = _blur(torch.stack([fx, fy], dim=1), ksize, sigma, True)  # (T-1, 2, H, W)
+    sm = flow_windows.window_blur(torch.stack([fx, fy], dim=1), ksize, sigma, True)  # (T-1, 2, H, W)
     fx, fy = sm[:, 0], sm[:, 1]
     if not to_first:
         fx, fy = compose_flow_chain(fx, fy)

@@ -34,6 +34,7 @@ from pdx_torch.preprocess import resize_denoise_normalize
 from pdx_torch.register.farneback import register_sequence_dispatch
 from pdx_torch.register.phasecorr import stabilize_translation_sequence
 from test_torch_patch_discovery import make_synthetic_stack
+from torch_card import all_finite, assert_no_gram_kernel, card, full_u8, launches
 
 SMALL = dict(skip=10, subsample=4, rollout_steps=(1, 2, 3))
 METRICS = ("r2", "rmse", "mae", "nrmse", "corr", "resid_med_abs", "one_step_rmse", "train_r2", "train_rmse",
@@ -266,3 +267,121 @@ def test_run_needs_a_card_unless_cpu():
         pytest.skip("a CUDA card is visible: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         ta.run(ta.AnalyzeConfig(**SMALL), U_raw=as_grayscale_u8(make_synthetic_stack()[:4]))
+
+
+# --- the card: analyze at the real dataset's shape, its artifacts, and against the CPU -----------------------------
+
+# pdx's artifact schema: pdx/io_host/artifacts.py:47-147 and the baseline at pdx/pipelines/analyze.py:644-664
+BEST_MODEL_KEYS = {
+    "generated_at", "selection", "train_frac", "name", "r2", "rmse", "mae", "nrmse", "corr", "resid_med_abs",
+    "one_step_rmse", "train_r2", "train_rmse", "train_nrmse", "train_corr", "train_one_step_rmse", "n_active",
+    "n_total", "equation", "terms", "coeffs", "spatial_holdout", "spatial_holdout_top_bottom", "rollout_time_test",
+    "rollout_space_test_left_right", "rollout_space_test_top_bottom",
+}
+COMPARISON_KEYS = {"generated_at", "train_frac", "space_train_frac", "rollout_steps", "use_robust_regression",
+                   "best_simple", "best_overall", "models"}
+COMPARISON_MODEL_KEYS = {"name", "r2_test", "rmse_test", "nrmse_test", "corr_test", "one_step_rmse", "n_active",
+                         "n_total", "equation", "terms", "coeffs", "rollout", "rollout_curve_test"}
+BASELINE_KEYS = {"selection", "name", "r2", "rmse", "nrmse", "corr", "one_step_rmse", "n_active", "n_total",
+                 "equation", "terms", "coeffs", "rollout_time_test"}
+
+
+def _full_size_gates(out: dict, n_models: int) -> None:
+    """n_models results, every R2 and k-step metric finite, Models 1 and 2
+    with equal coefficients (the reference's quirk), a known best model."""
+    res = out["results"]
+    assert len(res) == n_models
+    for r in res:
+        assert all_finite([r["r2"], r["train_r2"]] + [v for m in r["rollout"].values() for v in m.values()]), r["name"]
+    np.testing.assert_array_equal(res[0]["coeffs"], res[1]["coeffs"])
+    assert out["best_overall"]["name"] in list(ta.MODELS) + [ta.MODEL7]
+
+
+@pytest.fixture(scope="module")
+def full_run():
+    """The default configuration (2x downsample, the 50-flow chain, six
+    models) on the real dataset's shape read as 8-bit grayscale."""
+    cfg = ta.AnalyzeConfig(data_dir="unused", write_artifacts=False)
+    U = full_u8()  # skips without a card
+    with launches() as moved:
+        out = ta.run(cfg, U_raw=U, device=card())
+    return cfg, U, out, moved
+
+
+@pytest.mark.gpu
+def test_full_size_on_the_card(full_run):
+    _cfg, _U, out, moved = full_run
+    _full_size_gates(out, 6)
+    assert_no_gram_kernel(moved)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,n_models", [(dict(robust_regression=True), 6), (dict(include_fourth_order=True), 7)],
+                         ids=["robust", "model7"])
+def test_full_size_robust_and_model7_on_the_card(full_run, kw, n_models):
+    cfg, U, _out, _moved = full_run
+    with launches() as moved:
+        out = ta.run(dataclasses.replace(cfg, **kw), U_raw=U, device=card())
+    _full_size_gates(out, n_models)
+    assert_no_gram_kernel(moved)
+
+
+@pytest.mark.gpu
+def test_full_size_artifacts_match_pdx_schema(full_run, tmp_path):
+    """best_model.json, models_comparison.json and best_model_baseline.json
+    hold pdx's keys (the figures are skipped without matplotlib, as pdx
+    skips them)."""
+    cfg, U, _out, _moved = full_run
+    ta.run(dataclasses.replace(cfg, write_artifacts=True, output_dir=str(tmp_path)), U_raw=U, device=card())
+    files = {n: json.loads((tmp_path / n).read_text()) for n in
+             ("best_model.json", "models_comparison.json", "best_model_baseline.json")}
+    assert set(files["best_model.json"]) == BEST_MODEL_KEYS
+    assert set(files["models_comparison.json"]) == COMPARISON_KEYS
+    assert set(files["best_model_baseline.json"]) == BASELINE_KEYS
+    models = files["models_comparison.json"]["models"]
+    assert len(models) == 6 and all(set(m) == COMPARISON_MODEL_KEYS for m in models)
+
+
+@pytest.mark.gpu
+def test_fig4_snapshot_data_card_matches_cpu(full_run):
+    """FIG4's rollouts and error maps, the device work outside the
+    pipeline's figure guard, called as the pipeline calls it: the same
+    horizons, error maps within 1e-6 of their max (float32), nRMSE curves
+    within 1e-9 relative, NaN (a horizon with no valid start) on both
+    alike."""
+    from pdx_torch.report.figures import fig4_snapshot_data
+
+    cfg, U, out, _moved = full_run
+    u = ta.sliced_fields(cfg, ta.preprocess(cfg, U, device=card()))[0]["u"]
+    test_sl = ta._split_slices(u.shape[0], cfg.train_frac)[1]
+    kw = dict(test_start=test_sl.start, test_stop=test_sl.stop, dt=cfg.dt, dx=cfg.dx, dy=cfg.dy,
+              k_default=cfg.rollout_steps[-1] if cfg.rollout_steps else 10)
+    got, want = fig4_snapshot_data(u, out["results"], **kw), fig4_snapshot_data(u.cpu(), out["results"], **kw)
+    assert got["ks"] == want["ks"] and np.isfinite(got["maps"]).all()
+    assert np.abs(got["maps"] - want["maps"]).max() / np.abs(want["maps"]).max() < 1e-6
+    for c in ("curve4", "curve3"):
+        assert np.array_equal(np.isnan(got[c]), np.isnan(want[c]))
+        assert np.nanmax(np.abs(got[c] - want[c]) / np.abs(want[c])) < 1e-9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("registration", [False, True])
+def test_card_matches_cpu(registration):
+    """12 x 128 x 128 frames read as 8-bit. Registration off: Models 1-5
+    within 1e-10 of max|coef|, Model 6 within 1e-9 (its 13 columns, u, u^2
+    and u^3 among them, amplify the Gram's summation order: 1.2e-10 measured
+    on the H100). Registration on: 1e-5 (the chain's flows are float32;
+    64 px working frames run the flow at full resolution on both). The same
+    supports and selections."""
+    from tools.make_synth_stack import make_stack
+
+    U = (make_stack(T=12, H=128, W=128, seed=1) >> 8).astype(np.uint8)
+    cfg = ta.AnalyzeConfig(data_dir="unused", max_images=12, registration=registration, write_artifacts=False, **SMALL)
+    on_card, on_cpu = (ta.run(cfg, U_raw=U, device=d) for d in (card(), "cpu"))
+    for a, b in zip(on_card["results"], on_cpu["results"]):
+        tol = 1e-5 if registration else 1e-9 if a["name"].startswith("Model 6") else 1e-10
+        cb = np.asarray(b["coeffs"])
+        assert np.abs(np.asarray(a["coeffs"]) - cb).max() / np.abs(cb).max() < tol, a["name"]
+        assert a["n_active"] == b["n_active"], a["name"]
+    for k in ("best_simple", "best_overall"):
+        assert on_card[k]["name"] == on_cpu[k]["name"]

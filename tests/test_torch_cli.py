@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_tiff, write_tiff_stack
 from pdx import __main__ as jmain
 from pdx.pipelines import run_all as jra
 from pdx_torch import __main__ as tmain
+from pdx_torch.io_host.images import write_tiff, write_tiff_stack
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -79,3 +79,40 @@ def test_run_all_help_has_pdx_flags_and_device(capsys):
     want = _flags(jra.cmd_run_all, ["--help"], capsys)
     got = _flags(tmain.main, ["run-all", "--help"], capsys)
     assert got == want | {"--device"}
+
+
+@pytest.fixture(scope="module")
+def full_tiffs(tmp_path_factory):
+    """The real dataset's shape written as 51 uncompressed uint16 TIFFs."""
+    from torch_card import full_stack
+
+    U = full_stack()  # skips without a card
+    d = tmp_path_factory.mktemp("full_tiffs")
+    write_tiff_stack(d, U)
+    return d
+
+
+@pytest.mark.gpu
+def test_list_resolutions_of_the_full_stack_as_a_subprocess(full_tiffs):
+    res = subprocess.run([sys.executable, "-m", "pdx_torch", "list-resolutions", "--data-dir", str(full_tiffs)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "1024 x 1280: 51 files", (res.stdout, res.stderr[-2000:])
+
+
+@pytest.mark.gpu
+def test_doctor_on_the_card_as_a_subprocess():
+    """rc 0, the card named as nvidia-smi names it, every kernel of the
+    build's registry loaded."""
+    from pdx_torch.ops.kernels._build import KERNELS
+    from torch_card import card
+
+    card()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    res = subprocess.run([sys.executable, "-m", "pdx_torch", "doctor"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, (res.stdout, res.stderr[-2000:])
+    assert f"card 0: {smi}" in res.stdout
+    line = next(s for s in res.stdout.splitlines() if s.startswith("kernels:"))
+    assert line.startswith(f"kernels: {len(KERNELS)} of {len(KERNELS)} loaded")
+    assert all(f"{label} {symbol}" in line for label, symbol in KERNELS.items()), line

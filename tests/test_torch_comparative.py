@@ -30,11 +30,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_tiff_stack
-from pdx_torch.io_host.images import load_images
+from pdx_torch.io_host.images import load_images, write_tiff_stack
 from pdx_torch.report import comparative as tc
 from pdx_torch.report import figures as tf
 from tools.make_synth_stack import make_stack
+from torch_card import cuda
 
 SMALL_PATCH = dict(max_images=12, skip=4, subsample=2, patch=11, overlap=5, samples_per_patch=60, rt=1, rs=2, deg=2,
                    registration=False)
@@ -216,13 +216,6 @@ def test_presentation_flow_data_matches_pdx(contract):
 def test_presentation_flow_data_needs_two_frames():
     with pytest.raises(ValueError, match="at least two frames"):
         tc.presentation_flow_data(np.zeros((1, 8, 8), np.float32), "cpu")
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 @pytest.mark.gpu

@@ -31,6 +31,7 @@ import torch
 
 from pdx_torch import __main__ as tmain
 from pdx_torch.pipelines import comprehensive as tc
+from torch_card import GRAM_KERNELS, cuda, launches
 
 TOL = 1e-8
 BASE = dict(n_seconds=0.25, noises=("N2_noise", "N7_all"), write_artifacts=False)
@@ -212,18 +213,12 @@ def test_cli_writes_the_results(tmp_path, capsys):
     assert art["noise_configs"] == ["N0_clean", "N2_noise"] and len(art["results"]["N2_noise"]) == 3
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
 @pytest.mark.gpu
 def test_card_matches_cpu(cuda):
-    """The card against the CPU on N0_clean and N2_noise, every method,
-    at the same limits as against pdx."""
-    kw = dict(n_seconds=0.25, noises=("N2_noise",), write_artifacts=False)
+    """The card against the CPU on N0_clean, N2_noise, N3_blur and N7_all,
+    every method, at the same limits as against pdx, and the same best
+    method overall and per regime."""
+    kw = dict(n_seconds=0.25, noises=("N2_noise", "N3_blur", "N7_all"), write_artifacts=False)
     on_card = tc.run(tc.ComprehensiveConfig(**kw), cuda)
     on_cpu = tc.run(tc.ComprehensiveConfig(**kw), "cpu")
     assert set(on_card["placement"].values()) == {"cuda:0"}
@@ -233,3 +228,30 @@ def test_card_matches_cpu(cuda):
             assert "error_msg" not in on_card["results"][n][m] and np.isfinite(c).all()
             if not _lottery(m, n):
                 np.testing.assert_allclose(c, r["coef"], rtol=0, atol=TOL * np.abs(r["coef"]).max(), err_msg=f"{n}/{m}")
+    assert on_card["best_overall"] == on_cpu["best_overall"] and on_card["best_per_noise"] == on_cpu["best_per_noise"]
+
+
+# M01_baseline's error on N0_clean at the default (full) size, from pdx on the CPU in float64: the card's must be
+# the same to 1e-6 percentage points
+PDX_M01_CLEAN_ERROR = 6.096730154104554
+
+
+@pytest.mark.gpu
+def test_full_size_on_the_card(cuda, tmp_path):
+    """The default size (21 methods x 8 regimes, 200 frames of 64 x 64 from
+    10,000 Euler steps), writing benchmark_results.json: no method failed
+    (a CUDA error must not pass as a bad method), finite coefficients (M15
+    on the noise-free regimes excepted: fault F7), M01 on N0_clean at pdx's
+    error, no kernel launched; the file holds the run's keys and best."""
+    with launches(GRAM_KERNELS) as moved:
+        out = tc.run(tc.ComprehensiveConfig(output_dir=str(tmp_path)), cuda)
+    assert not any(moved.values()), moved
+    failed = [(n, m, r["error_msg"]) for n, d in out["results"].items() for m, r in d.items() if "error_msg" in r]
+    assert not failed, failed[:4]
+    assert len(out["results"]) == 8 and all(len(d) == 21 for d in out["results"].values())
+    bad = [(n, m) for n, d in out["results"].items() for m, r in d.items()
+           if not (m == "M15_sparse_dmd" and n in LOTTERY[m]) and not np.isfinite(r["coef"]).all()]
+    assert not bad, bad
+    assert abs(out["results"]["N0_clean"]["M01_baseline"]["error"] - PDX_M01_CLEAN_ERROR) < 1e-6
+    art = json.loads((tmp_path / "benchmark_results.json").read_text())
+    assert set(art) == set(out) and art["best_overall"] == out["best_overall"]

@@ -24,6 +24,7 @@ from pdx_torch.register import dis as tdis
 from pdx_torch.register import quality as tq
 from pdx_torch.register import tvl1 as ttv
 from pdx_torch.register.farneback import farneback_register_sequence
+from torch_card import cuda
 
 SHAPE = (70, 64)
 
@@ -132,13 +133,6 @@ def test_registration_improvement_equals_pdx():
     for k in got:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6)
     assert float(got["improvement_pct"]) > 20.0
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 @pytest.mark.gpu

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import pdx_torch.solve.dmd as tdmd
+from torch_card import cuda
 
 
 def _pdx():
@@ -180,13 +181,6 @@ def test_min_norm_lstsq_on_an_ill_conditioned_stacking(seed):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
     jx = np.asarray(jnp.linalg.lstsq(jnp.asarray(A), jnp.asarray(b))[0])
     np.testing.assert_allclose(got, jx, rtol=0, atol=1e-10 * np.abs(jx).max())
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 @pytest.mark.gpu

@@ -22,6 +22,7 @@ import torch
 from scipy.ndimage import gaussian_filter, rotate, shift as ndshift
 
 from pdx_torch.register import ecc as tec
+from torch_card import cuda
 
 TOL = 1e-10
 SHIFTS = [(0.3, -0.2), (1.5, 0.7), (-0.8, 1.1), (0.0, 0.0)]
@@ -171,13 +172,6 @@ def test_guard_on_non_finite_params():
     for k in range(2):
         oj, _ = jec.ecc_register_sequence(jnp.asarray(seqs[k]), **kw)
         _close(out[k].nan_to_num(), np.nan_to_num(np.asarray(oj)))
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 @pytest.mark.gpu

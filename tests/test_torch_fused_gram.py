@@ -24,6 +24,7 @@ import torch
 from pdx_torch.ops.kernels import fused_blockwise as tfb
 from pdx_torch.ops.kernels import fused_gram as tfg
 from pdx_torch.utils.profiling import total
+from torch_card import cuda
 
 KEYS = ("G", "b", "sx", "syy", "sy", "n")
 
@@ -60,13 +61,6 @@ def jx():
     from pdx.ops.pallas import fused_blockwise, fused_gram
 
     return SimpleNamespace(jnp=jnp, fg=fused_gram, fb=fused_blockwise)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
 
 
 class TestK1Plain:
@@ -537,12 +531,13 @@ def test_wrappers_count_launches_and_refuse_oversized_blocks(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,blocks,names", [
     ((1999, 100, 100), (3, 8, 8), RICH),  # the main path's float64 input
+    ((1999, 100, 100), (3, 8, 8), ADV),  # the main path with advection, float64
     ((8, 30, 126), (3, 8, 8), ADV),
 ])
 def test_term_kernels_take_float64(cuda, shape, blocks, names):
     """On float64 U and Ut, K2 and K4 round each value on load: the plain
-    versions agree within 1e-5 of each entry's scale and the float32 input's
-    launch gives the same bits."""
+    versions agree within 1e-5 of each entry's scale, two launches give the
+    same bits, and so does the float32 input's launch."""
     U, Ut = (torch.from_numpy(a).to(cuda) for a in _inputs(shape, 11, np.float64))
     kw = dict(zip(("block_t", "block_x", "block_y"), blocks))
     k2 = tfg.fused_ks_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names)
@@ -552,8 +547,11 @@ def test_term_kernels_take_float64(cuda, shape, blocks, names):
     U32, Ut32 = U.to(torch.float32), Ut.to(torch.float32)
     k2_32 = tfg.fused_ks_gram_terms(U32, Ut32, dx=0.5, dy=0.5, names=names)
     k4_32 = tfb.fused_blockwise_gram_terms(U32, Ut32, dx=0.5, dy=0.5, names=names, **kw)
+    again2 = tfg.fused_ks_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names)
+    again4 = tfb.fused_blockwise_gram_terms(U, Ut, dx=0.5, dy=0.5, names=names, **kw)
     for k in KEYS:
         assert torch.equal(k2[k], k2_32[k]) and torch.equal(k4[k], k4_32[k]), k
+        assert torch.equal(k2[k], again2[k]) and torch.equal(k4[k], again4[k]), k
 
 
 @pytest.mark.gpu
@@ -579,6 +577,7 @@ TRUE_CASES = [
     ((3, 600, 100), (2, 8, 8)),  # a frame taller than one band
     ((5, 100, 70), (5, 100, 1)),  # one block spans the frame height: float64 is rounded in flight
     ((4, 8, 3000), (2, 1, 8)),  # rows too wide for one row (K1) or one block-row (K3) of raw float64
+    ((1999, 100, 100), (3, 64, 8)),  # the main shape in 64-row blocks: K3's float64 bands fit only rounded
 ]
 
 

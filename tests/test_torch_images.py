@@ -141,9 +141,9 @@ def test_artifact_writers_match_pdx(tmp_path):
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 def test_smoke_tiff_writer_decodes_through_both_readers(tmp_path, dtype):
-    """chip_smoke.write_tiff (for machines without PIL or cv2) writes what
+    """write_tiff (for machines without PIL or cv2) writes what
     _fast_tiff_gray and PIL both read back as the written frame."""
-    from chip_smoke import write_tiff
+    from pdx_torch.io_host.images import write_tiff
 
     frame = np.random.default_rng(1).integers(0, np.iinfo(dtype).max, size=(17, 23), dtype=dtype)
     path = tmp_path / "frame.tif"

@@ -32,6 +32,7 @@ from pdx.pipelines import improved_registration as jir
 from pdx_torch import __main__ as tmain
 from pdx_torch.pipelines import improved_registration as tir
 from test_torch_patch_discovery import make_synthetic_stack
+from torch_card import all_finite, assert_flow_kernels, assert_no_gram_kernel, card, full_stack, launches
 
 BASE = dict(data_dir="unused", max_images=6, skip=10, subsample=6, savgol_window=5, savgol_poly=2,
             write_artifacts=False)
@@ -117,3 +118,43 @@ def test_cli(tmp_path, capsys, monkeypatch):
     text = capsys.readouterr().out
     assert "Selected:" in text and "R2 = " in text and "u_t = " in text
     assert (tmp_path / "out" / "registration_study.json").exists()
+
+
+# --- the card: the study at the real dataset's shape, and against the CPU ------------------------------------------
+
+
+@pytest.mark.gpu
+def test_full_size_on_the_card():
+    """The default configuration (the Farnebäck and DIS chains, three
+    quality sweeps of 50 float64 pairs at 1024 x 1280, a 49 x 80 x 101
+    working stack) on the real dataset's shape: finite coefficients (13),
+    R2 and quality metrics, the working shape, a selected method, none of
+    K1-K4 launched, every flow kernel launched."""
+    cfg = tir.ImprovedRegistrationConfig(data_dir="unused", write_artifacts=False)
+    U = full_stack()  # skips without a card
+    with launches() as moved:
+        out = tir.run(cfg, U_raw=U, device=card())
+    assert_no_gram_kernel(moved)
+    assert_flow_kernels(moved)
+    metrics = [out[m][k] for m in ("farneback_metrics", "dis_metrics") for k in out[m]]
+    assert len(out["coeffs"]) == 13 and np.isfinite(out["coeffs"]).all() and np.isfinite(out["r2"])
+    assert all_finite(metrics), metrics
+    assert out["working_shape"] == (49, 80, 101) and out["selected_method"] in ("DIS", "Farneback")
+
+
+@pytest.mark.gpu
+def test_card_matches_cpu():
+    """6 frames of 96 x 96 (Savitzky-Golay window 5): the same method, flow
+    magnitudes within 1e-6 relative, improvements within 1e-4 points,
+    coefficients within 1e-5 of max|coef| with the same support."""
+    from tools.make_synth_stack import make_stack
+
+    U = make_stack(T=6, H=96, W=96, seed=1)
+    a, b = (tir.run(tir.ImprovedRegistrationConfig(**BASE), U_raw=U, device=d) for d in (card(), "cpu"))
+    assert a["selected_method"] == b["selected_method"]
+    for m in ("farneback_metrics", "dis_metrics"):
+        for k in ("avg_flow_before", "avg_flow_after"):
+            assert abs(a[m][k] - b[m][k]) / abs(b[m][k]) < 1e-6, (m, k)
+        assert abs(a[m]["improvement_pct"] - b[m]["improvement_pct"]) < 1e-4, m
+    assert np.abs(a["coeffs"] - b["coeffs"]).max() / np.abs(b["coeffs"]).max() < 1e-5
+    assert np.array_equal(np.abs(a["coeffs"]) > 1e-5, np.abs(b["coeffs"]) > 1e-5)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import pdx_torch.sim.ks1d as tks
+from torch_card import cuda
 
 
 @pytest.fixture(scope="module")
@@ -125,13 +126,6 @@ def test_varying_ic_row_i_is_captured_before_step_i(jks):
 
 def test_varying_ic_matches_pdx_at_400_steps(jks):
     _close(tks.varying_ic_data(tks.Ks1dConfig(n_steps=400)), jks.varying_ic_data(jks.Ks1dConfig(n_steps=400)))
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 @pytest.mark.gpu

@@ -39,6 +39,7 @@ from pdx.ops.linalg import gram_stats as jgram
 from pdx_torch.__main__ import main as cli_main
 from pdx_torch.interop import frames_from_numpy, stats_from_numpy
 from pdx_torch.utils.profiling import total
+from torch_card import GRAM_KERNELS, all_finite, card, launches
 
 SMALL = dict(grid_search=True, Nx=32, Ny=32, n_seconds=0.2)
 CASES = {
@@ -303,3 +304,51 @@ def test_cli_without_device_needs_a_card(monkeypatch):
         cli_main(["ks2d-bench", "--Nx", "16", "--Ny", "16", "--n-seconds", "0.05", "--grid-search", "--device", "cuda"])
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tb.run(tb.Ks2dBenchConfig(**dict(SMALL, n_seconds=0.01)))
+
+
+# --- the card: the kernel paths at the full default size, and against the CPU ------------------------------------
+
+# label: (configuration beside grid_search=True, the kernel the run must launch, the worst ground-truth error in %
+# it must stay under (None: finite coefficients only), the number of terms)
+FULL_PATHS = {
+    "auto": (dict(), None, 1.0, 3),
+    "pallas": (dict(solver="pallas"), "fused_ks_gram", 1.0, 3),
+    "pallas_blockwise": (dict(solver="pallas", method="blockwise"), "fused_blockwise_gram", 1.0, 3),
+    "pallas_rich": (dict(solver="pallas", dictionary="rich"), "fused_ks_gram_terms", 2.0, 9),
+    "pallas_blockwise_rich": (
+        dict(solver="pallas", method="blockwise", dictionary="rich"), "fused_blockwise_gram_terms", 2.0, 9),
+    "pallas_adv": (dict(solver="pallas", include_advection=True), "fused_ks_gram_terms", 2.0, 5),
+    "perturbed": (PERTURBED, "fused_blockwise_gram_terms", None, 9),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(FULL_PATHS))
+def test_kernel_paths_at_full_size_on_the_card(label):
+    """Each main path at the full default size (100 x 100, 2000 Euler
+    steps, float64): its own kernel launches, finite coefficients of the
+    right count, and, where gated, the truth recovered with a finite
+    rollout."""
+    kw, kernel, gate, p = FULL_PATHS[label]
+    dev = card()
+    with launches(GRAM_KERNELS) as moved:
+        res = tb.run(tb.Ks2dBenchConfig(grid_search=True, **kw), dev)
+    assert len(res["coeffs"]) == p and all_finite(res["coeffs"]), res["coeffs"]
+    if gate is not None:
+        assert _worst_gt(res) < gate, res["gt_errors"]
+        assert all_finite(res["rollout"][k] for k in ("first", "last", "mean")), res["rollout"]
+    if kernel is not None:
+        assert moved[kernel] >= 1, moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["pallas", "pallas_blockwise", "pallas_rich", "pallas_blockwise_rich", "perturbed"])
+def test_kernel_paths_card_matches_cpu(label):
+    """The kernel paths on the card against the CPU at 32 x 32, 0.2 s:
+    coefficients at rtol 1e-6 (the rich library's decoys, ~1e-10 on the
+    CPU where the card gives 0, within 1e-6 of max|coef|)."""
+    kw = FULL_PATHS[label][0]
+    on_card = np.array(tb.run(tb.Ks2dBenchConfig(**SMALL, **kw), card())["coeffs"])
+    on_cpu = np.array(tb.run(tb.Ks2dBenchConfig(**SMALL, **kw), "cpu")["coeffs"])
+    atol = 1e-6 * np.abs(on_cpu).max() if kw.get("dictionary") == "rich" else 0.0
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-6, atol=atol)

@@ -27,10 +27,11 @@ import torch
 import pdx.pipelines.ks2d_bench as jb
 import pdx_torch.pipelines.ks2d_bench as tb
 from pdx_torch.interop import dataset_from_numpy, frames_from_numpy
+from torch_card import GRAM_KERNELS, all_finite, card, launches
 
 SMALL = dict(Nx=24, Ny=24, n_seconds=0.1)
 BLOCKS = dict(method="blockwise", block_x=4, block_y=4)
-# one configuration for each row of chip_smoke.py's table of this branch, and the variants beside them
+# one configuration for each row of BRANCH below, and the variants beside them
 CASES = {
     "slow_pointwise": dict(),
     "slow_grid_blockwise": dict(grid_search=True, **BLOCKS),
@@ -205,3 +206,85 @@ def test_rows_that_are_not_finite_are_filtered_before_the_split(monkeypatch):
     assert np.isfinite(got["coeffs"]).all()
     np.testing.assert_allclose(got["coeffs"], want["coeffs"], rtol=1e-8)
     _close(got["fit"]["test_rmse"], want["fit"]["test_rmse"], "test_rmse")
+
+
+# --- the card: the branch at the full default size, and against the CPU ------------------------------------------
+
+TRUE = ("lap", "bih", "gradsq")
+_IRLS = "IRLS stops when a step is under 1e-6: card and CPU may stop one step apart"
+# label -> (configuration beside the defaults, gate, number of terms, limit of the card against the CPU at 32 x 32,
+# 0.2 s as a share of max|coef|, why that limit). Gates: a number = the worst ground-truth error in % must stay
+# under it; "fd" = < 0.01% and decoys < 1e-4; None = finite coefficients only (the fit is off by the method, as
+# pdx's is).
+BRANCH = {
+    "slow_pointwise": (dict(), 1.0, 3, 1e-6, ""),
+    "slow_grid_blockwise": (dict(method="blockwise", grid_search=True), 1.0, 3, 1e-6, ""),
+    "weakform_fourier": (dict(method="weakform", weak_basis="fourier", grid_search=True), None, 3, 1e-6, ""),
+    "weakform_rich_fd": (
+        dict(method="weakform", dictionary="rich", weak_operator="fd", weak_basis="gaussian", grid_search=True),
+        "fd", 9, 1e-6, "",
+    ),
+    "weakform_noisy_motion": (
+        dict(method="weakform", perturbation="N5_shifts_noise", shift_mode="jitter", weak_motion_correct=True),
+        None, 3, 1e-6, "",
+    ),
+    "huber_noisy": (dict(regression="huber", perturbation="N2_noise", method="blockwise"), None, 3, 1e-4, _IRLS),
+    "robust_noisy": (
+        dict(robust=True, perturbation="N2_noise", method="blockwise", sign_constraints=(-1, -1, -1)),
+        None, 3, 1e-3, _IRLS + "; a trimmed row or a member's support may flip on a round-off tie",
+    ),
+    "ensemble": (dict(regression="ensemble", n_sample=20000), 1.0, 3, 1e-4, _IRLS),
+    "qr_rich_f32": (
+        dict(dictionary="rich", dtype="float32", grid_search=True), 2.0, 9, 1e-3,
+        "float32 throughout: cuSOLVER's and LAPACK's Householder QR round differently",
+    ),
+    "shift_ut": (dict(perturbation="N1_shifts", correct_shift_ut=True, grid_search=True), None, 3, 1e-6, ""),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(BRANCH))
+def test_branch_at_full_size_on_the_card(label):
+    """Each configuration of the branch at the full default size (100 x
+    100, 2000 Euler steps): no kernel launched, finite coefficients of the
+    right count and a finite fit; where gated, a finite rollout and the
+    truth recovered."""
+    kw, gate, p, _tol, _why = BRANCH[label]
+    with launches(GRAM_KERNELS) as moved:
+        res = tb.run(tb.Ks2dBenchConfig(**kw), card())
+    assert not any(moved.values()), moved
+    assert len(res["coeffs"]) == p and all_finite(res["coeffs"]), res["coeffs"]
+    assert all_finite(res["fit"].values()), res["fit"]
+    if gate is not None:  # a far-off fit's rollout may blow up
+        assert all_finite(res["rollout"].values()), res["rollout"]
+    worst = max(v["rel_err_pct"] for v in res["gt_errors"].values())
+    if gate == "fd":
+        decoys = max(abs(c) for n, c in zip(res["names"], res["coeffs"]) if n not in TRUE)
+        assert worst < 0.01 and decoys < 1e-4, dict(zip(res["names"], res["coeffs"]))
+    elif gate is not None:
+        assert worst < gate, res["gt_errors"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(BRANCH))
+def test_branch_card_matches_cpu(label):
+    """Each configuration on the card against the CPU at 32 x 32, 0.2 s,
+    at its own limit (BRANCH says why where it is above 1e-6)."""
+    kw, _gate, _p, tol, why = BRANCH[label]
+    small = dict(Nx=32, Ny=32, n_seconds=0.2)
+    on_card = np.array(tb.run(tb.Ks2dBenchConfig(**small, **kw), card())["coeffs"])
+    on_cpu = np.array(tb.run(tb.Ks2dBenchConfig(**small, **kw), "cpu")["coeffs"])
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=tol * np.abs(on_cpu).max(), err_msg=why)
+
+
+@pytest.mark.gpu
+def test_spectral_stepper_card_matches_cpu():
+    """simulate_ks2d_spectral (no configuration of the benchmark calls it)
+    at 100 x 100, 200 steps of dt = 0.01: finite, card and CPU within 1e-9
+    of max|u|."""
+    from pdx_torch.sim.ks2d import Ks2dConfig, simulate_ks2d_spectral
+
+    sim = Ks2dConfig(dt=1e-2, n_seconds=2.0)
+    on_card, on_cpu = (simulate_ks2d_spectral(sim, device=d)[0].cpu().numpy() for d in (card(), "cpu"))
+    assert np.isfinite(on_card).all()
+    assert np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max() < 1e-9

@@ -6,12 +6,18 @@ with optical flow, improved_registration, the comprehensive method matrix,
 sindy1d and the multi-device dry run over a mesh of virtual shards). In a
 third, with matplotlib made unimportable, the report
 modules and run_all import, and run_all(skip_heavy=True) marks every figure
-stage skipped and runs the rest."""
+stage skipped and runs the rest. On the card (``gpu``), a fourth runs the
+paths that only CUDA tensors take: kernels K1-K4, the Farnebäck flow
+kernels and the chain's CUDA graphs, each of which must launch."""
 
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+
+from torch_card import FLOW_KERNELS, GRAM_KERNELS, card
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -100,7 +106,7 @@ from pathlib import Path
 sys.modules["matplotlib"] = None  # every import of matplotlib now raises ImportError
 import pdx_torch.report.figures, pdx_torch.report.comparative, pdx_torch.report.pipeline_figures
 from pdx_torch.pipelines.run_all import SKIPPED, RunAllConfig, run
-from chip_smoke import FIGURE_STAGES, write_tiff_stack
+from pdx_torch.io_host.images import write_tiff_stack
 from tools.make_synth_stack import make_stack
 with tempfile.TemporaryDirectory() as tmp:
     os.environ["XDG_CACHE_HOME"] = tmp + "/xdg"
@@ -109,7 +115,8 @@ with tempfile.TemporaryDirectory() as tmp:
         status = run(RunAllConfig(data_dir=tmp + "/tiffs", output_root=tmp + "/out", max_images=16,
                                   skip_heavy=True, skip=4, subsample=4), device="cpu")
     assert "(skipped model comparison figure" in said.getvalue(), said.getvalue()
-    figures = [s for s in status if s in FIGURE_STAGES]
+    figures = [s for s in status if s in ("figures_minimal", "slide3", "method_slide", "comparative_figures",
+                                          "finalclass_figures", "presentation_figures", "figures_refresh")]
     assert list(status) == ["analyze"] + figures and len(figures) == 6, status
     assert status["analyze"] == "ok" and all(status[s] == SKIPPED for s in figures), status
     assert (Path(tmp) / "out" / "slides" / "best_model.json").exists()
@@ -120,12 +127,48 @@ print("clean")
 """
 
 
-def _probe_is_clean(probe: str) -> None:
+PROBE_CARD = f"""
+import sys
+import numpy as np
+from tools.make_synth_stack import make_stack
+from pdx_torch.pipelines import improved_registration as tir, ks2d_bench as tb, patch_discovery as tpd
+from pdx_torch.pipelines import patch_sindy as tps, transport as tt
+from pdx_torch.utils.profiling import total
+names = {GRAM_KERNELS + FLOW_KERNELS!r}
+base = {{n: total(n + ".launches") for n in names}}
+small = dict(grid_search=True, Nx=32, Ny=32, n_seconds=0.2, solver="pallas", dtype="float32")
+for kw in (dict(), dict(method="blockwise"), dict(dictionary="rich"), dict(method="blockwise", dictionary="rich")):
+    out = tb.run(tb.Ks2dBenchConfig(**small, **kw), "cuda")  # K1, K3, K2, K4
+    assert np.isfinite(out["coeffs"]).all(), out
+out = tpd.run(tpd.PatchDiscoveryConfig(data_dir="unused", max_images=12, skip=4, subsample=2, patch=11, overlap=5,
+                                       samples_per_patch=60, rt=1, rs=2, deg=2, write_artifacts=False),
+              U_raw=make_stack(T=12, H=128, W=128), device="cuda")  # registration on: the chain's step graphs
+assert out["n_patches"] > 0 and np.isfinite(out["patch_coeffs"]).all(), out
+out = tt.run(tt.TransportConfig(data_dir="unused", max_images=8, downsample=4, flow_levels=2, write_artifacts=False),
+             U_raw=make_stack(T=8, H=220, W=220), device="cuda")
+assert all(np.isfinite(r["r2"]) for r in out["results"].values()), out
+stack = make_stack(T=6, H=96, W=96, seed=1)
+out = tps.run(tps.PatchSindyConfig(data_dir="unused", patch_size=48, overlap=16, skip_boundary=3, subsample=2,
+                                   min_patches=2, registration_method="optical_flow", write_artifacts=False),
+              U_raw=stack / 65535.0, device="cuda")
+assert np.isfinite(out["coeffs"]).all(), out
+out = tir.run(tir.ImprovedRegistrationConfig(data_dir="unused", skip=10, subsample=6, savgol_window=5,
+                                             savgol_poly=2, write_artifacts=False), U_raw=stack, device="cuda")
+assert np.isfinite(out["coeffs"]).all(), out
+idle = sorted(n for n in names if total(n + ".launches") == base[n])
+assert not idle, idle  # every kernel's branch was entered
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "pdx.")) or m == "pdx")
+assert not bad, bad
+print("clean")
+"""
+
+
+def _probe_is_clean(probe: str, timeout: float = 120) -> None:
     # one intra-op thread: the probe checks imports, and beside the other test
     # workers a many-threaded run of small ops spends its time waiting
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"} | {"OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
-        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+        [sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
@@ -141,3 +184,9 @@ def test_registration_studies_import_no_jax():
 
 def test_run_all_without_matplotlib_skips_only_the_figures():
     _probe_is_clean(PROBE_NO_MATPLOTLIB)
+
+
+@pytest.mark.gpu
+def test_card_paths_import_no_jax():
+    card()
+    _probe_is_clean(PROBE_CARD, timeout=900)  # may build the kernels first

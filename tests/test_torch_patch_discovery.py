@@ -35,6 +35,7 @@ from pdx.register.farneback import register_sequence_dispatch as j_register
 from pdx_torch import __main__ as tmain
 from pdx_torch.interop import stack_from_numpy
 from pdx_torch.pipelines import patch_discovery as tpd
+from torch_card import all_finite, assert_flow_kernels, assert_no_gram_kernel, card, full_stack, launches, motion
 
 SMALL = dict(max_images=12, skip=4, subsample=2, patch=11, overlap=5, samples_per_patch=60, rt=1, rs=2, deg=2,
              write_artifacts=False)
@@ -190,3 +191,89 @@ def test_errors_match_pdx(stack, kw, match):
         jpd.run(jpd.PatchDiscoveryConfig(**cfg), U_raw=stack[: cfg["max_images"]])
     with pytest.raises(RuntimeError, match=match):
         tpd.run(tpd.PatchDiscoveryConfig(**cfg), U_raw=stack[: cfg["max_images"]], device="cpu")
+
+
+# --- the card: the patch ensemble at full size, its artifacts, and against the CPU ---------------------------------
+
+
+@pytest.fixture(scope="module")
+def full_stacks():
+    """The real dataset's shape (51 x 1024 x 1280 uint16) with the default
+    configuration, and bench.py's stack (51 x 512 x 640 float64, skip 12,
+    subsample 6); built once a card is present."""
+    from tools.make_synth_stack import make_stack
+
+    real = full_stack()  # skips without a card
+    bench = make_stack(T=51, H=512, W=640).astype(np.float64)
+    bench.setflags(write=False)
+    return {"real_51x1024x1280_u16": (real, dict()),
+            "bench_51x512x640_f64": (bench, dict(skip=12, subsample=6))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stack_name", ["real_51x1024x1280_u16", "bench_51x512x640_f64"])
+def test_full_size_on_the_card(full_stacks, stack_name):
+    """Registration in ``auto`` mode (the Farnebäck chain, each flow at half
+    resolution): patches fit, finite coefficients and metrics, none of
+    K1-K4 launched, every flow kernel launched (the default
+    configuration), and registration lowers the residual motion."""
+    dev = card()
+    U, kw = full_stacks[stack_name]
+    cfg = tpd.PatchDiscoveryConfig(data_dir="unused", write_artifacts=False, **kw)
+    with launches() as moved:
+        out = tpd.run(cfg, U_raw=U, device=dev)
+    assert_no_gram_kernel(moved)
+    if not kw:
+        assert_flow_kernels(moved)
+    assert out["n_patches"] > 0
+    assert np.isfinite(out["patch_coeffs"]).all() and np.isfinite(out["stats"]["coeffs"]).all()
+    metrics = [v for pm in out["patch_train_metrics"] + out["patch_test_metrics"] for v in pm.values()]
+    assert all_finite(metrics + list(out["global_test_metrics"].values()) + [out["one_step_rmse"]])
+    U_pre = tpd.preprocess_head(cfg, U, dev)
+    assert motion(tpd.register(cfg, U_pre)) < motion(U_pre)
+
+
+@pytest.mark.gpu
+def test_artifacts_on_the_card(full_stacks, tmp_path):
+    """bench.py's stack with the artifacts written: the CSV's header, the
+    report's "Aggregated PDE:" line and the JSON summary agree with the run."""
+    U, kw = full_stacks["bench_51x512x640_f64"]
+    cfg = tpd.PatchDiscoveryConfig(data_dir="unused", write_artifacts=True, output_dir=str(tmp_path), **kw)
+    out = tpd.run(cfg, U_raw=U, device=card())
+    csv = (tmp_path / "PATCH_PDE_COEFFS.csv").read_text()
+    assert csv.startswith("term,median,q25,q75,nonzero_freq,sign_stability,agg_coeff") and "lap(u)" in csv
+    assert f"Aggregated PDE:\n  {out['equation']}" in (tmp_path / "PATCH_PDE_REPORT.txt").read_text()
+    summary = json.loads((tmp_path / "patch_pde_summary.json").read_text())
+    assert summary["equation"] == out["equation"] and summary["n_patches"] == out["n_patches"]
+    assert len(summary["agg_coeffs"]) == len(out["names"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("registration,tol", [(False, 1e-10), (True, 1e-5)])
+def test_card_matches_cpu(registration, tol):
+    """12 x 128 x 128 frames: patch coefficients within the CPU tests'
+    limits of max|coef|, the same kept support."""
+    from tools.make_synth_stack import make_stack
+
+    U = make_stack(T=12, H=128, W=128, seed=1)
+    cfg = tpd.PatchDiscoveryConfig(data_dir="unused", registration=registration, **SMALL)
+    on_card, on_cpu = (tpd.run(cfg, U_raw=U, device=d) for d in (card(), "cpu"))
+    a, b = np.asarray(on_card["patch_coeffs"]), np.asarray(on_cpu["patch_coeffs"])
+    assert np.abs(a - b).max() / np.abs(b).max() < tol
+    assert np.array_equal(on_card["stats"]["keep"], on_cpu["stats"]["keep"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames,flow_ds", [(128, None), (256, 2)], ids=["run_chain_64px", "flow_ds2_128px"])
+def test_chain_card_matches_cpu(frames, flow_ds):
+    """The registered frames of run's chain (64 px working frames: the flow
+    at full resolution on both) and of the chain with ``flow_ds=2`` passed
+    to both (128 px working frames), card against CPU within 5e-6."""
+    from pdx_torch.register.farneback import farneback_register_sequence
+    from tools.make_synth_stack import make_stack
+
+    U = make_stack(T=12, H=frames, W=frames, seed=1 if flow_ds is None else 2)
+    cfg = tpd.PatchDiscoveryConfig(data_dir="unused", registration=True, **SMALL)
+    kw = {} if flow_ds is None else dict(flow_ds=flow_ds)
+    reg = [farneback_register_sequence(tpd.preprocess_head(cfg, U, d), **kw).cpu().numpy() for d in (card(), "cpu")]
+    assert np.abs(reg[0] - reg[1]).max() < 5e-6

@@ -42,6 +42,7 @@ from pdx.pipelines import patch_sindy as jps
 from pdx_torch import __main__ as tmain
 from pdx_torch.pipelines import patch_sindy as tps
 from test_torch_patch_discovery import make_synthetic_stack
+from torch_card import assert_no_gram_kernel, card, full_f255, launches, motion
 
 BASE = dict(data_dir="unused", patch_size=48, overlap=16, skip_boundary=3, subsample=2, min_patches=2,
             write_artifacts=False)
@@ -223,3 +224,76 @@ def test_cli(tiff_dir, tmp_path, capsys):
     text = capsys.readouterr().out
     assert "Valid patches: 25" in text and "u_t = " in text
     assert (tmp_path / "patch_sindy_results.json").exists()
+
+
+# --- the card: patch_sindy at the real dataset's shape, and against the CPU -----------------------------------------
+
+
+def _full_size_gates(out: dict, positive: bool) -> None:
+    """30 patches (the 5 x 6 grid of 256 px patches), finite coefficients,
+    an average quality in (0, 1] (``positive``) or [0, 1]. A quality is
+    max(0, R2) x registration quality: where a registration removes the
+    stack's drift, u_t is left at the noise's level and R2 may be <= 0 in
+    every patch: the compose schedule gives 0 on this stack, as pdx does on
+    the CPU, and is held to the residual motion it removes instead."""
+    assert out["n_patches"] == 30
+    assert np.isfinite(out["coeffs"]).all() and np.isfinite(out["patch_coeffs"]).all()
+    assert (0 < out["avg_quality"] <= 1) if positive else (0 <= out["avg_quality"] <= 1), out["avg_quality"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,positive", [
+    (dict(), False),  # the default configuration: no registration
+    (dict(registration_method="optical_flow"), False),  # per patch: the compose path, flows at 64 x 64
+    (dict(registration_method="ecc"), True),  # 30 patches as one batch, 50 host steps
+    (dict(registration_method="optical_flow", flow_scope="frame"), True),
+], ids=["none", "optical_flow_compose", "ecc", "optical_flow_frame"])
+def test_full_size_on_the_card(kw, positive):
+    """Each schedule on the real dataset's shape read as 8-bit / 255:
+    30 patches, finite coefficients, the average quality in range, none of
+    K1-K4 launched."""
+    cfg = tps.PatchSindyConfig(data_dir="unused", write_artifacts=False, **kw)
+    U = full_f255()  # skips without a card
+    with launches() as moved:
+        out = tps.run(cfg, U_raw=U, device=card())
+    assert_no_gram_kernel(moved)
+    _full_size_gates(out, positive)
+
+
+@pytest.mark.gpu
+def test_full_size_compose_lowers_the_residual_motion():
+    """The compose path's per-patch registration lowers the residual motion
+    of the 30 patch sequences of 256 px."""
+    from pdx_torch.ops.filters import gaussian_filter_reflect, savgol_time
+
+    cfg = tps.PatchSindyConfig(data_dir="unused", write_artifacts=False, registration_method="optical_flow")
+    U = savgol_time(gaussian_filter_reflect(torch.as_tensor(full_f255(), device=card()), cfg.spatial_sigma), 3, 2)
+    seqs = tps.extract_patch_sequences(U, 256, 192)[0]
+    assert motion(tps.register_patches(cfg, seqs)[0]) < motion(seqs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,no_flow", [
+    (dict(), True), (dict(registration_method="ecc"), True),
+    (dict(FLOW, flow_compose=False), False),
+    (dict(FLOW, flow_compose=True, flow_downsample=1), False),
+    (dict(FLOW, flow_compose=True, flow_downsample=2, patch_size=64, overlap=32), False),
+    (dict(FLOW, flow_scope="frame"), False),
+], ids=["none", "ecc", "chain", "compose_ds1", "compose_ds2", "frame"])
+def test_card_matches_cpu(kw, no_flow):
+    """6 frames of 96 x 96, every schedule, at the limits against pdx:
+    ensemble coefficients within 1e-10 (no flow) or 1e-5 (float32 flows) of
+    max|coef|, each patch's within 1e-9 or 3e-5 (the constant term is
+    round-off on both sides: below 1e-8), the average quality within 1e-10
+    or 2e-5."""
+    from tools.make_synth_stack import make_stack
+
+    U = make_stack(T=6, H=96, W=96, seed=1) / 65535.0
+    cfg = tps.PatchSindyConfig(**{**BASE, **kw})
+    a, b = (tps.run(cfg, U_raw=U, device=d) for d in (card(), "cpu"))
+    ens_tol, patch_tol, q_tol = (1e-10, 1e-9, 1e-10) if no_flow else (1e-5, 3e-5, 2e-5)
+    scale = np.abs(b["patch_coeffs"]).max()
+    assert np.abs(a["coeffs"][1:] - b["coeffs"][1:]).max() / scale < ens_tol
+    assert np.abs(a["patch_coeffs"][:, 1:] - b["patch_coeffs"][:, 1:]).max() / scale < patch_tol
+    assert max(np.abs(a["patch_coeffs"][:, 0]).max(), np.abs(b["patch_coeffs"][:, 0]).max()) / scale < 1e-8
+    assert abs(a["avg_quality"] - b["avg_quality"]) < q_tol

@@ -21,12 +21,15 @@ Limits, and why:
   rounding.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from pdx_torch.shard import dryrun as tdry
 from pdx_torch.shard import mesh as tm
+from torch_card import GRAM_KERNELS, cuda, full_f255, full_stack, launches
 
 N_DEV = 8
 
@@ -223,13 +226,6 @@ def test_dryrun_multichip_cpu():
     assert out["patch_shards"] == N_DEV and len(set(out["placement"].values())) == 3
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda", 0)
-
-
 @pytest.mark.gpu
 def test_card_virtual_shards_match_one_device(cuda):
     """4 virtual shards of cuda:0 against the card alone: the sharded Gram
@@ -247,8 +243,59 @@ def test_card_virtual_shards_match_one_device(cuda):
     off = tpd.run(tpd.PatchDiscoveryConfig(**PD, mesh="off"), U_raw=stack, device=cuda, mesh=mesh4)
     # cuBLAS and cuSOLVER round a batched product or solve by its batch size, so on the card a shard's
     # patches part from the whole batch's at round-off: held at the card-against-CPU limit of the patch
-    # ensemble (test_torch_patch_discovery.py, chip_smoke.py), 1e-10 of max|coef|
+    # ensemble (test_torch_patch_discovery.py), 1e-10 of max|coef|
     C = off["patch_coeffs"]
     np.testing.assert_allclose(on["patch_coeffs"], C, rtol=0, atol=1e-10 * np.abs(C).max())
     assert on["n_shard_devices"] == 4 and off["n_shard_devices"] == 1
     assert tdry.dryrun_multichip(4, cuda)["patch_shards"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipeline", ["ks2d_bench", "patch_discovery", "patch_sindy", "comprehensive"])
+def test_card_mesh_at_full_size_matches_one_device(cuda, pipeline):
+    """Every card, or 4 virtual shards of the one card, with the mesh on
+    against off at the real sizes: ks2d_bench at its default size (solver
+    "gram", no grid: the sample-sharded Gram; the truth recovered within
+    1%), the patch axis of the patch ensemble (registration off) and of
+    patch_sindy (no registration) on the real dataset's shape, and
+    comprehensive's regime round-robin and split ridge family at
+    n_seconds=0.25 on four regimes; the limits above, n_shard_devices the
+    mesh's size on and 1 off, no kernel launched."""
+    from pdx_torch.pipelines import comprehensive as tc
+    from pdx_torch.pipelines import ks2d_bench as tb
+    from pdx_torch.pipelines import patch_discovery as tpd
+    from pdx_torch.pipelines import patch_sindy as tps
+
+    n = torch.cuda.device_count() if torch.cuda.device_count() > 1 else 4
+    mesh = tdry.dryrun_mesh(n, cuda)
+    with launches(GRAM_KERNELS) as moved:
+        if pipeline == "ks2d_bench":
+            on, off = (tb.run(tb.Ks2dBenchConfig(solver="gram", mesh=m), cuda, mesh) for m in ("on", "off"))
+            np.testing.assert_allclose(on["coeffs"], off["coeffs"], rtol=1e-9, atol=1e-12)
+            assert max(v["rel_err_pct"] for v in on["gt_errors"].values()) < 1.0
+        elif pipeline == "comprehensive":
+            kw = dict(n_seconds=0.25, noises=("N2_noise", "N3_blur", "N7_all"), write_artifacts=False)
+            on, off = (tc.run(tc.ComprehensiveConfig(**kw, multi_device=m), cuda, mesh=mesh) for m in (True, False))
+            for reg, methods in off["results"].items():
+                for m, r in methods.items():
+                    assert "error_msg" not in on["results"][reg][m], (reg, m)
+                    if m == "M04_tv" or (m == "M15_sparse_dmd" and reg in ("N0_clean", "N3_blur", "N4_drift")):
+                        continue  # round-off lotteries: faults F8, F7
+                    c_off = np.asarray(r["coef"])
+                    assert np.abs(np.asarray(on["results"][reg][m]["coef"]) - c_off).max() <= 1e-8 * np.abs(c_off).max()
+            assert len(set(on["placement"].values())) == min(len(on["placement"]), n)
+            assert set(off["placement"].values()) == {str(cuda)}
+        elif pipeline == "patch_discovery":
+            cfg = tpd.PatchDiscoveryConfig(data_dir="unused", registration=False, write_artifacts=False)
+            on, off = (tpd.run(dataclasses.replace(cfg, mesh=m), U_raw=full_stack(), device=cuda, mesh=mesh)
+                       for m in ("on", "off"))
+            np.testing.assert_allclose(on["patch_coeffs"], off["patch_coeffs"], rtol=1e-10, atol=1e-13)
+            assert (on["n_shard_devices"], off["n_shard_devices"]) == (n, 1)
+        else:
+            cfg = tps.PatchSindyConfig(data_dir="unused", write_artifacts=False)
+            on, off = (tps.run(dataclasses.replace(cfg, mesh=m), U_raw=full_f255(), device=cuda, mesh=mesh)
+                       for m in ("on", "off"))
+            np.testing.assert_allclose(on["patch_coeffs"], off["patch_coeffs"], rtol=1e-7, atol=1e-9)
+            np.testing.assert_allclose(on["coeffs"], off["coeffs"], rtol=1e-7, atol=1e-9)
+            assert (on["n_shard_devices"], off["n_shard_devices"]) == (n, 1)
+    assert not any(moved.values()), moved

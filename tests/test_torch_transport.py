@@ -23,6 +23,7 @@ from pdx.pipelines import transport as jt
 from pdx_torch import __main__ as tmain
 from pdx_torch.pipelines import transport as tt
 from test_torch_patch_discovery import make_synthetic_stack
+from torch_card import assert_flow_kernels, assert_no_gram_kernel, card, full_stack, launches
 
 SMALL = dict(max_images=8, downsample=4, flow_levels=2)
 ACTIVE_ALPHAS = (1e-6, 1e-5, 1e-4)
@@ -155,3 +156,51 @@ def test_run_needs_a_card_unless_cpu(stack):
         pytest.skip("a CUDA card is visible: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tt.run(tt.TransportConfig(**SMALL), U_raw=stack)
+
+
+# --- the card: transport at the real dataset's shape, and against the CPU -------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alphas", [None, ACTIVE_ALPHAS], ids=["pdx_alphas", "active_alphas"])
+def test_full_size_on_the_card(alphas):
+    """The default configuration (4x downsample, 50 pair flows as one
+    float64 batch, a 13-term library of 50 x 256 x 320 rows) on the real
+    dataset's shape, at pdx's alphas and at alphas that keep terms active
+    (there FISTA iterates): finite coefficients and R2 for every alpha,
+    none of K1-K4 launched, the flow's expansions and update launched."""
+    cfg = tt.TransportConfig(data_dir="unused", write_artifacts=False)
+    if alphas is not None:
+        cfg = dataclasses.replace(cfg, alphas=alphas)
+    U = full_stack()  # skips without a card
+    with launches() as moved:
+        out = tt.run(cfg, U_raw=U, device=card())
+    assert_no_gram_kernel(moved)
+    assert_flow_kernels(moved, ("poly_expansion", "warped_poly_expansion", "flow_update"))
+    assert len(out["results"]) == len(cfg.alphas)
+    for a, r in out["results"].items():
+        assert np.isfinite(r["coefficients"]).all() and np.isfinite(r["r2"]), a
+
+
+@pytest.mark.gpu
+def test_card_matches_cpu():
+    """8 frames of 220 x 220 (4x downsampled, 2 pyramid levels, as pdx's own
+    test): float64 flows within 1e-9 px; coefficients within 1e-6 of
+    max|coef| and R2 within 1e-9, at pdx's alphas and at alphas that keep
+    terms active (FISTA stops where a step falls under 1e-8, so card and
+    CPU may stop an iteration apart)."""
+    from tools.make_synth_stack import make_stack
+
+    U = make_stack(T=8, H=220, W=220, seed=3)
+    cfg = tt.TransportConfig(data_dir="unused", write_artifacts=False, **SMALL)
+    flows = []
+    for d in (card(), "cpu"):
+        images = torch.as_tensor(U, device=d).to(torch.float64)
+        flows.append([f.cpu() for f in tt._pair_flows(cfg, tt._normalized_pairs_input(cfg, images / images.max())[1])])
+    assert max(float((a - b).abs().max()) for a, b in zip(*flows)) < 1e-9
+    for alphas in (cfg.alphas, ACTIVE_ALPHAS):
+        one = dataclasses.replace(cfg, alphas=alphas)
+        on_card, on_cpu = (tt.run(one, U_raw=U, device=d)["results"] for d in (card(), "cpu"))
+        scale = max(max(np.abs(r["coefficients"]).max() for r in on_cpu.values()), 1e-300)
+        assert max(np.abs(on_card[a]["coefficients"] - on_cpu[a]["coefficients"]).max() for a in on_cpu) / scale < 1e-6
+        assert max(abs(on_card[a]["r2"] - on_cpu[a]["r2"]) for a in on_cpu) < 1e-9

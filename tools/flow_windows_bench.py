@@ -57,6 +57,7 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("flow_windows_bench.py: no CUDA card visible")
+    from pdx_torch.ops.kernels import flow_windows as fw
     from pdx_torch.register import farneback as fb
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -77,9 +78,6 @@ def main(argv=None) -> int:
               f"{t_p if t_p is None else round(t_p, 4)!s:>9} ms  bound {bound:8.4f} ms ({100 * bound / t_k:5.1f}%)"
               f"  gap {row['gap']!s}", flush=True)
 
-    def warped_plain(img, flow, n, sigma):
-        return fb._poly_exp_plain(fb.warp_flow(img, flow[0], flow[1]), n, sigma)
-
     def gap(a, b):
         return float((a - b).abs().max() / b.abs().max())
 
@@ -93,30 +91,33 @@ def main(argv=None) -> int:
         shape = (B, H, W)
         f1 = torch.rand(shape, dtype=dtype, device=dev, generator=g)
         f2 = torch.roll(f1, (1, 2), (-2, -1)) + 0.01 * torch.rand(shape, dtype=dtype, device=dev, generator=g)
-        n, item, px = pn // 2, f1.element_size(), B * H * W
-        e1p, e2p = fb._poly_exp_plain(f1, n, ps), fb._poly_exp_plain(f2, n, ps)
-        record(f"poly_expansion.{label}", shape, dtype, lambda: fb._poly_exp(f1, n, ps),
-               lambda: fb._poly_exp_plain(f1, n, ps), 6 * item * px, lambda: gap(fb._poly_exp(f1, n, ps), e1p[:5]))
+        item, px = f1.element_size(), B * H * W
+        e1p, e2p = fw.poly_expansion_reference(f1, pn, ps), fw.poly_expansion_reference(f2, pn, ps)
+        record(f"poly_expansion.{label}", shape, dtype, lambda: fw.poly_expansion(f1, pn, ps),
+               lambda: fw.poly_expansion_reference(f1, pn, ps), 6 * item * px,
+               lambda: gap(fw.poly_expansion(f1, pn, ps), e1p[:5]))
         flow = torch.randn((2,) + shape, dtype=dtype, device=dev, generator=g)
-        record(f"warped_poly_expansion.{label}", shape, dtype, lambda: fb._warped_poly_exp(f2, flow, n, ps),
-               lambda: warped_plain(f2, flow, n, ps), 8 * item * px,
-               lambda: gap(fb._warped_poly_exp(f2, flow, n, ps), warped_plain(f2, flow, n, ps)[:5]))
-        record(f"flow_update.{label}", shape, dtype, lambda: fb._flow_iteration(e1p, e2p, flow, win, gauss),
-               lambda: fb._flow_iteration_plain(e1p, e2p, flow, win, gauss), 14 * item * px,
-               lambda: gap(fb._flow_iteration(e1p, e2p, flow, win, gauss),
-                           fb._flow_iteration_plain(e1p, e2p, flow, win, gauss)))
+        record(f"warped_poly_expansion.{label}", shape, dtype, lambda: fw.warped_poly_expansion(f2, flow, pn, ps),
+               lambda: fw.warped_poly_expansion_reference(f2, flow, pn, ps), 8 * item * px,
+               lambda: gap(fw.warped_poly_expansion(f2, flow, pn, ps),
+                           fw.warped_poly_expansion_reference(f2, flow, pn, ps)[:5]))
+        record(f"flow_update.{label}", shape, dtype, lambda: fw.flow_update(e1p, e2p, flow, win, gauss),
+               lambda: fw.flow_update_reference(e1p, e2p, flow, win, gauss), 14 * item * px,
+               lambda: gap(fw.flow_update(e1p, e2p, flow, win, gauss),
+                           fw.flow_update_reference(e1p, e2p, flow, win, gauss)))
         kw = dict(pyr_scale=0.5, levels=3, winsize=win, iterations=3, poly_n=pn, poly_sigma=ps, gaussian_win=gauss)
         if label.endswith("chain"):
             kw.update(levels=5, iterations=5, refine=1)
 
         def plain_flow():
-            saved = fb._poly_exp, fb._warped_poly_exp, fb._flow_iteration, fb._blur
-            fb._poly_exp, fb._flow_iteration, fb._blur = fb._poly_exp_plain, fb._flow_iteration_plain, fb._blur_plain
-            fb._warped_poly_exp = warped_plain
+            saved = fw.poly_expansion, fw.warped_poly_expansion, fw.flow_update, fw.window_blur
+            fw.poly_expansion = lambda f, n, s: fw.poly_expansion_reference(f, n, s)[:5]
+            fw.warped_poly_expansion = lambda f, fl, n, s: fw.warped_poly_expansion_reference(f, fl, n, s)[:5]
+            fw.flow_update, fw.window_blur = fw.flow_update_reference, fw.window_blur_reference
             try:
                 return torch.stack(fb.farneback_flow(f1, f2, **kw))
             finally:
-                fb._poly_exp, fb._warped_poly_exp, fb._flow_iteration, fb._blur = saved
+                fw.poly_expansion, fw.warped_poly_expansion, fw.flow_update, fw.window_blur = saved
 
         want = plain_flow()
         record(f"farneback_flow.{label}", shape, dtype, lambda: fb.farneback_flow(f1, f2, **kw), plain_flow, 0,
@@ -132,10 +133,10 @@ def main(argv=None) -> int:
     for label, shape, dtype in (("dis_smooth", (2, 1024, 1280), torch.float64),
                                 ("chain_smooth", (2, 512, 640), torch.float32)):
         f = torch.randn(shape, dtype=dtype, device=dev, generator=g)
-        want = fb._blur_plain(f, 11, 2.0, True)
-        record(f"window_blur.{label}", shape, dtype, lambda: fb._blur(f, 11, 2.0, True),
-               lambda: fb._blur_plain(f, 11, 2.0, True), 2 * f.element_size() * f.numel(),
-               lambda: gap(fb._blur(f, 11, 2.0, True), want))
+        want = fw.window_blur_reference(f, 11, 2.0, True)
+        record(f"window_blur.{label}", shape, dtype, lambda: fw.window_blur(f, 11, 2.0, True),
+               lambda: fw.window_blur_reference(f, 11, 2.0, True), 2 * f.element_size() * f.numel(),
+               lambda: gap(fw.window_blur(f, 11, 2.0, True), want))
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

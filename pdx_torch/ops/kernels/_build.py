@@ -52,6 +52,7 @@ _SIGNATURES = {  # symbol: (label of a kernel's launch or None, restype, argtype
     "pdx_flow_windows": ("farneback", _I, [_I, _I] + [_P] * 5 + [_I] * 7 + [_P]),
     "pdx_flow_windows_smem_bytes": (None, _LL, [_I] * 3),
     "pdx_flow_windows_occupancy": (None, _I, [_I] * 3 + [_PI, _PI]),
+    "pdx_dis": ("dis", _I, [_I, _I] + [_P] * 6 + [_I] * 5 + [_P]),
 }
 KERNELS = {label: symbol for symbol, (label, *_) in _SIGNATURES.items() if label}  # label -> launch symbol
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 from scipy.ndimage import gaussian_filter, shift as ndshift
 
+from pdx_torch.ops.kernels.dis_patches import _densify, _patch_grid_coords, _patches
 from pdx_torch.register import dis as tdis
 from pdx_torch.register import quality as tq
 from pdx_torch.register import tvl1 as ttv
@@ -70,10 +71,10 @@ def test_densification_is_the_scatter_add(ps, st):
     1e-14 relative: another summation order), with 0 where no patch lies;
     the patches are the grid's."""
     H, W = SHAPE
-    coords = tdis._patch_grid_coords(H, W, ps, st)
+    coords = _patch_grid_coords(H, W, ps, st)
     P = coords.shape[0]
     vals = torch.from_numpy(np.random.default_rng(ps + st).uniform(0.5, 2.0, size=(3, P)))
-    got = tdis._densify(vals, H, W, ps, st)
+    got = _densify(vals, H, W, ps, st)
     r = torch.as_tensor(coords[:, 0, None] + np.arange(ps))[:, :, None].expand(P, ps, ps)
     c = torch.as_tensor(coords[:, 1, None] + np.arange(ps))[:, None, :].expand(P, ps, ps)
     want = torch.stack([
@@ -83,7 +84,7 @@ def test_densification_is_the_scatter_add(ps, st):
     torch.testing.assert_close(got, want, rtol=1e-14, atol=0)
     assert (got[2] == 0).any() or (H - ps) % st == 0  # uncovered margins stay 0
     img = torch.from_numpy(field())
-    assert torch.equal(tdis._patches(img, ps, st), torch.stack([img[r[k], c[k]] for k in range(P)]))
+    assert torch.equal(_patches(img, ps, st), torch.stack([img[r[k], c[k]] for k in range(P)]))
 
 
 def test_uncovered_pixels_keep_the_initial_flow():

@@ -8,7 +8,8 @@ third, with matplotlib made unimportable, the report
 modules and run_all import, and run_all(skip_heavy=True) marks every figure
 stage skipped and runs the rest. On the card (``gpu``), a fourth runs the
 paths that only CUDA tensors take: kernels K1-K4, the Farnebäck flow
-kernels and the chain's CUDA graphs, each of which must launch."""
+kernels, the chain's CUDA graphs and the DIS flow's kernels, each of which
+must launch."""
 
 import os
 import subprocess
@@ -17,7 +18,7 @@ from pathlib import Path
 
 import pytest
 
-from torch_card import FLOW_KERNELS, GRAM_KERNELS, card
+from torch_card import DIS_KERNELS, FLOW_KERNELS, GRAM_KERNELS, card
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -134,7 +135,7 @@ from tools.make_synth_stack import make_stack
 from pdx_torch.pipelines import improved_registration as tir, ks2d_bench as tb, patch_discovery as tpd
 from pdx_torch.pipelines import patch_sindy as tps, transport as tt
 from pdx_torch.utils.profiling import total
-names = {GRAM_KERNELS + FLOW_KERNELS!r}
+names = {GRAM_KERNELS + FLOW_KERNELS + DIS_KERNELS!r}
 base = {{n: total(n + ".launches") for n in names}}
 small = dict(grid_search=True, Nx=32, Ny=32, n_seconds=0.2, solver="pallas", dtype="float32")
 for kw in (dict(), dict(method="blockwise"), dict(dictionary="rich"), dict(method="blockwise", dictionary="rich")):

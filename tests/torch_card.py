@@ -20,9 +20,11 @@ import torch
 
 from pdx_torch.utils.profiling import total
 
-# the wrappers of kernels K1-K4 and of the Farnebäck flow's windowed passes; each counts `<wrapper>.launches`
+# the wrappers of kernels K1-K4, of the Farnebäck flow's windowed passes and of the DIS flow's
+# per-level passes; each counts `<wrapper>.launches`
 GRAM_KERNELS = ("fused_ks_gram", "fused_ks_gram_terms", "fused_blockwise_gram", "fused_blockwise_gram_terms")
 FLOW_KERNELS = ("poly_expansion", "warped_poly_expansion", "flow_update", "window_blur")
+DIS_KERNELS = ("dis_inverse_search", "dis_densify")
 
 
 def card() -> torch.device:
